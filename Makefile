@@ -1,17 +1,14 @@
-# Snapshot gate: run before every end-of-round commit (and any commit that
-# touches the render path). A red suite must never ship.
-#
-# Tiers (single core; nproc=1 here makes xdist useless — tiering, not
-# parallelism, keeps the gate usable under deadline):
-#   make gate   — 12:50 measured (262 tests, 2026-08-21): every subsystem's core correctness (ops/raster
+# Test tiers (CPU; the Pallas kernels run in the interpreter):
+#   make gate   — every subsystem's core correctness (ops/raster
 #                 fixed-function + parts, rendergraph, rhi, core, asset,
 #                 engine, viewer, one golden smoke). Run between edits and
 #                 before any commit touching the render path.
-#   make check  — exhaustive: the full suite + graft entry. ~94 min wall
-#                 (664 tests, measured 2026-08-21, cache/suite_r5.log).
-#                 Gate every end-of-round snapshot on this.
-#   make quick  — ~2 min core sanity while iterating.
-.PHONY: check test gate quick bench entry
+#   make check  — exhaustive: the full suite + graft entry.
+#   make quick  — core sanity while iterating.
+# On a machine with an NVIDIA GPU:
+#   make chip   — chip_smoke.py (kernels compiled on the card, the scene).
+#   make bench  — one JSON line: the scene's frame rate on the card.
+.PHONY: check test gate quick bench chip entry
 
 check: test entry
 	@echo "check: suite green + graft entry compiles"
@@ -42,6 +39,8 @@ quick:
 entry:
 	python -c "import __graft_entry__ as g; fn, args = g.entry(); print('entry ok')"
 
-# TPU only — one JSON line (the driver's headline metric).
 bench:
 	python bench.py
+
+chip:
+	python chip_smoke.py

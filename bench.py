@@ -1,16 +1,12 @@
-"""Headline benchmark — the BASELINE.md north star:
-"the sandbox demo scene at 1080p ≥60 FPS on one v5e chip".
+"""Scene frame-rate benchmark: the sandbox scene at 1080p.
 
-Measures the full sandbox scene (BASELINE.md config #5: cerberus + ground,
-sun with PCF shadows, 100 point lights, deferred GGX PBR, bloom + ACES
-tonemap, sRGB present encode) through the real engine path — per-frame
-render-graph rebuild + structure-cache hit + one async dispatch — for N
-frames with a single final fence, excluding compilation. Prints ONE JSON
-line. vs_baseline is FPS / 60 (the reference publishes no numbers; 60 FPS
-at 1080p is the agreed target, BASELINE.md).
-
-Falls back to the triangle demo (config #1) if the cerberus content is
-unavailable.
+Measures the full sandbox scene (cerberus + ground, sun with PCF shadows,
+100 point lights, deferred GGX PBR, bloom + ACES tonemap, sRGB present
+encode) through the real engine path — per-frame render-graph rebuild +
+structure-cache hit + one async dispatch — for N frames with a single
+final fence, excluding compilation. Prints ONE JSON line naming the device
+it ran on. It fails, loudly, when the scene cannot run; there is no
+fallback workload.
 """
 
 from __future__ import annotations
@@ -24,22 +20,22 @@ import time
 def bench_scene() -> "tuple[str, float] | None":
     import numpy as np
 
-    from zenith_tpu import asset
-    from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-    from zenith_tpu.renderer import DeferredRenderer, PostProcess
-    from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-    from zenith_tpu.core.camera import Camera
-    from zenith_tpu.core.mathtypes import Degree, Radians
+    from zenith import asset
+    from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+    from zenith.renderer import DeferredRenderer, PostProcess
+    from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+    from zenith.core.camera import Camera
+    from zenith.core.mathtypes import Degree, Radians
 
     asset.initialize()
-    from zenith_tpu.sandbox.mesh import default_content_root
-    from zenith_tpu.sandbox.scene import build_scene
+    from zenith.sandbox.mesh import default_content_root
+    from zenith.sandbox.scene import build_scene
 
     root = default_content_root()
     if not os.path.isdir(os.path.join(root, "content", "mesh", "cerberus")):
         return None
 
-    from zenith_tpu.renderer import PresentEncode
+    from zenith.renderer import PresentEncode
 
     core = RhiCore()
     device = core.create_render_device()
@@ -77,10 +73,8 @@ def bench_scene() -> "tuple[str, float] | None":
     img = frame(0.0)
     jax.block_until_ready(img)
 
-    # min over reps: host steal on this shared VM is strictly ADDITIVE
-    # noise (it can only make a rep slower, never faster), so the fastest
-    # rep is the least-biased estimator of the true frame cost. PERF.md
-    # documents the observed band across runs.
+    # min over reps: host noise is additive (it can only make a rep
+    # slower), so the fastest rep is the least-biased frame-cost estimate.
     n = 120
     times = []
     for rep in range(5):
@@ -92,79 +86,23 @@ def bench_scene() -> "tuple[str, float] | None":
     return "sandbox_scene_fps_1080p", 1.0 / min(times)
 
 
-def bench_triangle() -> "tuple[str, float]":
-    import jax
-    import jax.numpy as jnp
-
-    from __graft_entry__ import _triangle_pipeline
-    from zenith_tpu.ops import TileGrid, clear_color, clear_depth, draw_indexed
-    from zenith_tpu.rhi import Format, encode_present
-
-    w, h = 1920, 1080
-    grid = TileGrid(width=w, height=h)
-    pipeline = _triangle_pipeline()
-
-    @jax.jit
-    def frame(vb, t):
-        colors = [clear_color(h, w, (0.1, 0.1, 0.1, 1.0))]
-        depth = clear_depth(h, w, 0.0)
-        ib = jnp.asarray([[0, 1, 2]], jnp.int32)
-        colors, depth, _ = draw_indexed(
-            colors, depth, pipeline, vb, ib, {"Time": t}, grid
-        )
-        return encode_present(colors[0], Format.BGRA8_SRGB)
-
-    vb = jnp.asarray(
-        [
-            [0.0, 0.5, 0.5, 1.0, 0.0, 0.0],
-            [-0.5, -0.5, 0.5, 0.0, 1.0, 0.0],
-            [0.5, -0.5, 0.5, 0.0, 0.0, 1.0],
-        ],
-        jnp.float32,
-    )
-    out = frame(vb, jnp.float32(0.0))
-    jax.block_until_ready(out)
-    n = 300
-    times = []
-    for _rep in range(3):
-        t0 = time.perf_counter()
-        for i in range(n):
-            out = frame(vb, jnp.float32(i * 0.016))
-        jax.block_until_ready(out)
-        times.append((time.perf_counter() - t0) / n)
-    return "triangle_demo_fps_1080p", 1.0 / min(times)
-
-
 def main() -> None:
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from zenith.engine import ensure_persistent_compile_cache
 
-    result = None
-    try:
-        result = bench_scene()
-    except Exception as e:  # content missing / compile issue → fall back
-        import sys
-
-        print(f"scene bench unavailable ({type(e).__name__}: {e})", file=sys.stderr)
+    ensure_persistent_compile_cache()
+    dev = jax.devices()[0]
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices())}
+    result = bench_scene()
     if result is None:
-        result = bench_triangle()
-
-    metric, fps = result
-    print(
-        json.dumps(
-            {
-                "metric": metric,
-                "value": round(fps, 1),
-                "unit": "frames/sec",
-                "vs_baseline": round(fps / 60.0, 2),
-            }
+        raise SystemExit(
+            f"bench: scene content (cerberus) not found; device {device}"
         )
-    )
+    metric, fps = result
+    print(json.dumps({"metric": metric, "value": fps, "unit": "frames/sec",
+                      "device": device}))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Independent NumPy reference rasterizer — the test oracle.
 
-Implements the same conventions as zenith_tpu.ops (Vulkan viewport transform,
+Implements the same conventions as zenith.ops (Vulkan viewport transform,
 y-down framebuffer, pixel centers at +0.5, top-left fill rule, submission-
 order depth updates, perspective-correct interpolation) with a deliberately
 different, brute-force structure: a per-triangle loop over the full

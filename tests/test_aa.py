@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.ops.aa import post_aa
+from zenith.ops.aa import post_aa
 
 H, W = 32, 32
 
@@ -67,7 +67,7 @@ class TestPostAA:
 
 class TestPostChainFXAA:
     def test_tone_and_bloom_fxaa_applies(self):
-        from zenith_tpu.renderer.post import tone_and_bloom
+        from zenith.renderer.post import tone_and_bloom
 
         hdr = np.zeros((64, 64, 4), np.float32)
         hdr[:, 32:, :3] = 4.0  # hard bright edge
@@ -87,7 +87,7 @@ class TestPostChainFXAA:
         from jax.sharding import Mesh, PartitionSpec as P
         from jax.experimental.shard_map import shard_map
 
-        from zenith_tpu.renderer.post import (
+        from zenith.renderer.post import (
             tone_and_bloom,
             tone_and_bloom_banded,
         )

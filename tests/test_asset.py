@@ -11,8 +11,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from zenith_tpu import asset as asset_mod
-from zenith_tpu.asset import (
+from zenith import asset as asset_mod
+from zenith.asset import (
     AssetManager,
     AssetUrl,
     Material,
@@ -179,8 +179,8 @@ class TestHotReload:
         import shutil
         import time
 
-        from zenith_tpu.asset.manager import AssetManager
-        from zenith_tpu.sandbox.mesh import default_content_root
+        from zenith.asset.manager import AssetManager
+        from zenith.sandbox.mesh import default_content_root
 
         src_root = default_content_root()
         gltf_dir = os.path.join(src_root, "content", "mesh", "cerberus")
@@ -273,7 +273,7 @@ class TestGlbContainer:
         assert mat.base_color_factor == (0.9, 0.1, 0.2, 1.0)
 
     def test_malformed_glb_named_errors(self, tmp_path):
-        from zenith_tpu.asset.gltf_loader import GltfLoader
+        from zenith.asset.gltf_loader import GltfLoader
 
         bad_version = tmp_path / "v1.glb"
         bad_version.write_bytes(b"glTF" + b"\x01\x00\x00\x00" + b"\x00" * 32)

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.renderer import PostProcess
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import clear_frame_program_cache, \
+from zenith.renderer import PostProcess
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.rendergraph.graph import clear_frame_program_cache, \
     frame_program_cache_size
-from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
 H, W = 64, 128
 
@@ -140,7 +140,7 @@ class TestSPMD:
         """The banded post node pmeans the log-average so every band adapts
         identically; output and exposure match single-device bit-for-bit
         (within fp tolerance)."""
-        from zenith_tpu.parallel.sharding import default_mesh
+        from zenith.parallel.sharding import default_mesh
 
         core = RhiCore()
         device = core.create_render_device()

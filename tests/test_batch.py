@@ -11,16 +11,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops import TileGrid, clear_color, clear_depth
-from zenith_tpu.ops.draw import draw_indexed, draw_indexed_batch
-from zenith_tpu.rhi.pipeline import (
+from zenith.ops import TileGrid, clear_color, clear_depth
+from zenith.ops.draw import draw_indexed, draw_indexed_batch
+from zenith.rhi.pipeline import (
     GraphicPipeline,
     GraphicPipelineDesc,
     GraphicShaderInput,
 )
-from zenith_tpu.rhi.formats import Format
-from zenith_tpu.rhi.shader import Shader, uniform
-from zenith_tpu.rhi.state import (
+from zenith.rhi.formats import Format
+from zenith.rhi.shader import Shader, uniform
+from zenith.rhi.state import (
     ColorAttachmentDesc,
     CullMode,
     DepthStencilDesc,
@@ -49,7 +49,7 @@ def _fs(varyings, res, builtins):
 
 
 def _pipeline(blend=False, samples=1):
-    from zenith_tpu.rhi.state import MultisampleState
+    from zenith.rhi.state import MultisampleState
 
     vs = Shader.vertex("batch.vs", _vs, bindings=[uniform("Offset")])
     fs = Shader.fragment("batch.fs", _fs, bindings=[uniform("Tint")])
@@ -231,9 +231,9 @@ def test_per_draw_uniforms_ride_records_at_high_draw_count(rng):
     import jax.numpy as jnp
     import numpy as np
 
-    from zenith_tpu.ops.binning import TileGrid
-    from zenith_tpu.ops.draw import draw_indexed, draw_indexed_batch
-    from zenith_tpu.rhi import (
+    from zenith.ops.binning import TileGrid
+    from zenith.ops.draw import draw_indexed, draw_indexed_batch
+    from zenith.rhi import (
         ColorAttachmentDesc,
         Format,
         GraphicPipelineAttachments,
@@ -242,8 +242,8 @@ def test_per_draw_uniforms_ride_records_at_high_draw_count(rng):
         attr,
         uniform,
     )
-    from zenith_tpu.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
-    from zenith_tpu.rhi.state import (
+    from zenith.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
+    from zenith.rhi.state import (
         CullMode,
         DepthStencilDesc,
         GraphicPipelineState,

@@ -8,8 +8,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.rhi import (
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.rhi import (
     BlendFactor,
     Buffer,
     ColorAttachmentDesc,
@@ -25,7 +25,7 @@ from zenith_tpu.rhi import (
     TextureDesc,
     VertexLayout,
 )
-from zenith_tpu.rhi.state import DepthStencilDesc, GraphicPipelineState
+from zenith.rhi.state import DepthStencilDesc, GraphicPipelineState
 
 W, H = 128, 32
 OPTS = CompileOptions(tile_h=8, tile_w=128)
@@ -101,7 +101,7 @@ def test_src_alpha_blend_over_opaque():
             depth_test_enable=True,
             depth_write_enable=False,
             depth_compare_op=CompareOp.GREATER,
-            depth_load_op=__import__("zenith_tpu.rhi.state", fromlist=["LoadOp"]).LoadOp.LOAD,
+            depth_load_op=__import__("zenith.rhi.state", fromlist=["LoadOp"]).LoadOp.LOAD,
         ),
     )
     with node2.pipeline(GraphicShaderInput(VS, FS, LAYOUT), trans_state) as b:

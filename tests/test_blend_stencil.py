@@ -9,9 +9,9 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.ops.binning import TileGrid
-from zenith_tpu.ops.draw import draw_indexed, draw_indexed_batch
-from zenith_tpu.rhi import (
+from zenith.ops.binning import TileGrid
+from zenith.ops.draw import draw_indexed, draw_indexed_batch
+from zenith.rhi import (
     ColorAttachmentDesc,
     Format,
     GraphicPipelineAttachments,
@@ -20,8 +20,8 @@ from zenith_tpu.rhi import (
     attr,
     uniform,
 )
-from zenith_tpu.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
-from zenith_tpu.rhi.state import (
+from zenith.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
+from zenith.rhi.state import (
     CompareOp,
     CullMode,
     DepthStencilDesc,

@@ -5,21 +5,21 @@ import math
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import (
+from zenith.core.camera import (
     Camera,
     CameraController,
     WORLD_SPACE_FORWARD,
     WORLD_SPACE_RIGHT,
     WORLD_SPACE_UP,
 )
-from zenith_tpu.core.events import (
+from zenith.core.events import (
     ElementState,
     Focused,
     MouseButton,
     MouseInput,
     MouseMotion,
 )
-from zenith_tpu.core.mathtypes import Radians
+from zenith.core.mathtypes import Radians
 
 
 class TestCamera:

@@ -8,15 +8,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.ops.contact import contact_shadow_factor
+from zenith.ops.contact import contact_shadow_factor
 
 
 def _flat_ground_planes(h=32, w=64):
     """An analytic G-buffer: camera above a ground plane at z=0 looking
     +y/down; positions fan out so screen rows map to increasing ground
     distance. Returns (world_pos, depth, cam_pos, view_proj)."""
-    from zenith_tpu.core.camera import Camera
-    from zenith_tpu.core.mathtypes import Degree, Radians
+    from zenith.core.camera import Camera
+    from zenith.core.mathtypes import Degree, Radians
 
     cam = Camera(fov_y=Degree(45.0), aspect_ratio=w / h)
     cam.set_position(np.array([0.0, -30.0, 12.0], np.float32))
@@ -103,13 +103,13 @@ class TestSceneContact:
     def _render(self, contact, options=None):
         from dataclasses import replace
 
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import DeferredRenderer
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-        from zenith_tpu.sandbox.scene import build_scene
-        from zenith_tpu import asset
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import DeferredRenderer
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.sandbox.scene import build_scene
+        from zenith import asset
 
         asset.initialize()
         core = RhiCore()
@@ -150,8 +150,8 @@ class TestSceneContact:
         contact-shadow DELTA: (on - off) must match across mesh sizes —
         the march's global-row dither and gathered-full tap planes make
         the feature itself band-invariant."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph import CompileOptions
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph import CompileOptions
 
         delta1 = self._render(True) - self._render(False)
         mesh = default_mesh(8, backend="cpu")

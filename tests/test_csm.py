@@ -6,13 +6,13 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.renderer.csm import (
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.renderer.csm import (
     cascade_split_distances,
     fit_cascades,
 )
-from zenith_tpu.renderer.scene import DirectionalLight
+from zenith.renderer.scene import DirectionalLight
 
 
 def _camera():
@@ -43,7 +43,7 @@ class TestFit:
     def test_slice_corners_inside_each_cascade(self):
         """Every frustum-slice corner must land inside its cascade's NDC
         box ([-1,1]² xy, [0,1] z) — the definition of a correct fit."""
-        from zenith_tpu.renderer.csm import _frustum_slice_corners
+        from zenith.renderer.csm import _frustum_slice_corners
 
         sun = DirectionalLight(cascades=3)
         cam = _camera()
@@ -86,11 +86,11 @@ class TestFit:
 
 class TestLayeredPCF:
     def test_matches_single_layer_pcf(self, rng):
-        from zenith_tpu.ops.sampling import (
+        from zenith.ops.sampling import (
             sample_shadow_pcf,
             sample_shadow_pcf_layered,
         )
-        from zenith_tpu.renderer.forward import _SHADOW_SAMPLER
+        from zenith.renderer.forward import _SHADOW_SAMPLER
 
         depth0 = rng.uniform(0.2, 0.9, size=(32, 32)).astype(np.float32)
         depth1 = rng.uniform(0.2, 0.9, size=(32, 32)).astype(np.float32)
@@ -112,8 +112,8 @@ class TestLayeredPCF:
     def test_mixed_layer_selection(self):
         """layer index selects per PIXEL: half the screen reads the
         all-occluded layer, half the all-open layer."""
-        from zenith_tpu.ops.sampling import sample_shadow_pcf_layered
-        from zenith_tpu.renderer.forward import _SHADOW_SAMPLER
+        from zenith.ops.sampling import sample_shadow_pcf_layered
+        from zenith.renderer.forward import _SHADOW_SAMPLER
 
         occluded = np.zeros((16, 16), np.float32)  # depth 0 < any ref
         open_ = np.ones((16, 16), np.float32)
@@ -133,12 +133,12 @@ class TestLayeredPCF:
 
 class TestSceneCSM:
     def _render(self, cascades, retained_check=False, shadows=True):
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.renderer import DeferredRenderer
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-        from zenith_tpu.sandbox.scene import build_scene
-        from zenith_tpu import asset
+        from zenith.core.camera import Camera
+        from zenith.renderer import DeferredRenderer
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.sandbox.scene import build_scene
+        from zenith import asset
 
         asset.initialize()
         core = RhiCore()

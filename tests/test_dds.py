@@ -11,7 +11,7 @@ import struct
 import numpy as np
 import pytest
 
-from zenith_tpu.asset.dds import (
+from zenith.asset.dds import (
     DDSFile,
     decode_bc1,
     decode_bc2,
@@ -273,7 +273,7 @@ class TestDeviceUpload:
     def test_to_texture_asset_formats(self):
         bc4 = parse_dds(make_dds(b"ATI1", 4, 4, 1, bytes(8)))
         bc5 = parse_dds(make_dds(b"ATI2", 4, 4, 1, bytes(16)))
-        from zenith_tpu.asset.render_types import TextureFormat
+        from zenith.asset.render_types import TextureFormat
 
         assert bc4.to_texture_asset("a.tex").format == TextureFormat.R8
         assert bc5.to_texture_asset("b.tex").format == TextureFormat.RG8

@@ -1,5 +1,5 @@
 """Deferred decals (renderer.decal): G-buffer albedo rewrite before
-lighting. The reference has no decal system; these tests pin the TPU
+lighting. The reference has no decal system; these tests pin this
 build's semantics — unit-box clipping, texture/procedural blends, normal
 fade, and dynamics-only animation (no recompile when a decal moves).
 """
@@ -7,19 +7,19 @@ fade, and dynamics-only animation (no recompile when a decal moves).
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.rendergraph import RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import CompileOptions
-from zenith_tpu.renderer import (
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.rendergraph import RenderGraphBuilder
+from zenith.rendergraph.graph import CompileOptions
+from zenith.renderer import (
     Decal,
     DeferredRenderer,
     DirectionalLight,
     Scene,
     SceneObject,
 )
-from zenith_tpu.renderer.decal import stacked_decal_mats
-from zenith_tpu.rhi import Format, PipelineCache, RhiCore, Texture, TextureDesc
+from zenith.renderer.decal import stacked_decal_mats
+from zenith.rhi import Format, PipelineCache, RhiCore, Texture, TextureDesc
 
 W, H = 128, 64
 OPTS = CompileOptions(tile_h=8, tile_w=128)
@@ -135,7 +135,7 @@ class TestDecalRendering:
 
     def test_moving_decal_is_a_dynamic(self, device):
         """Moving a decal changes only dynamics: same frame program."""
-        from zenith_tpu.rendergraph import graph as G
+        from zenith.rendergraph import graph as G
 
         decal = Decal("mark", position=(0.0, 0.0, 0.0),
                       size=(16.0, 16.0, 4.0), color=(0.0, 0.0, 1.0, 1.0))

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops.binning import TileGrid
-from zenith_tpu.ops.draw import draw_indexed, draw_indexed_batch
-from zenith_tpu.ops.sampling import sample_2d
-from zenith_tpu.rhi import (
+from zenith.ops.binning import TileGrid
+from zenith.ops.draw import draw_indexed, draw_indexed_batch
+from zenith.ops.sampling import sample_2d
+from zenith.rhi import (
     ColorAttachmentDesc,
     Format,
     GraphicPipelineAttachments,
@@ -26,9 +26,9 @@ from zenith_tpu.rhi import (
     texture2d,
     uniform,
 )
-from zenith_tpu.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
-from zenith_tpu.rhi.sampler import SamplerConfig
-from zenith_tpu.rhi.state import (
+from zenith.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
+from zenith.rhi.sampler import SamplerConfig
+from zenith.rhi.state import (
     BlendFactor,
     CompareOp,
     CullMode,

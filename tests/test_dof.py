@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.renderer.dof import DepthOfField, dof_blend
+from zenith.renderer.dof import DepthOfField, dof_blend
 
 H, W = 64, 128
 
@@ -59,9 +59,9 @@ class TestBlend:
 
 class TestSPMD:
     def test_banded_matches_single(self, cpu_devices):
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()

@@ -3,9 +3,9 @@ same frames as the reference-parity rebuild-every-frame path."""
 
 import numpy as np
 
-from zenith_tpu.app import RenderableApp, RenderContext
-from zenith_tpu.launch import launch
-from zenith_tpu.window import Window
+from zenith.app import RenderableApp, RenderContext
+from zenith.launch import launch
+from zenith.window import Window
 
 W, H = 128, 32
 
@@ -22,7 +22,7 @@ class _TriApp(RenderableApp):
         self.renderer = None
 
     def prepare(self, render_device, window):
-        from zenith_tpu.renderer import TriangleRenderer
+        from zenith.renderer import TriangleRenderer
 
         self.renderer = TriangleRenderer(render_device)
 
@@ -49,7 +49,7 @@ class _TriAppRetained(_TriApp):
 
 
 def _run(app_class):
-    from zenith_tpu.rendergraph.graph import clear_frame_program_cache
+    from zenith.rendergraph.graph import clear_frame_program_cache
 
     clear_frame_program_cache()
     window = Window(width=W, height=H, title="t")
@@ -73,7 +73,7 @@ class TestRetainedInvalidation:
     def test_invalidate_retained_forces_rebuild(self):
         """After invalidate_retained() (hot-reload path), the next frame
         goes through app.render again instead of the retained program."""
-        from zenith_tpu.engine import Engine
+        from zenith.engine import Engine
 
         calls = []
 
@@ -82,7 +82,7 @@ class TestRetainedInvalidation:
                 calls.append(self.frame)
                 super().render(context)
 
-        from zenith_tpu.core.cli import EngineArgs
+        from zenith.core.cli import EngineArgs
 
         window = Window(width=W, height=H, title="t")
         engine = Engine(window)
@@ -104,9 +104,9 @@ class TestPresentFrom:
         """An app using PresentEncode + context.present_from presents the
         pre-encoded uint8 frame (swapchain skips its own encode), and the
         delivered frame matches encoding the linear output."""
-        from zenith_tpu.renderer import PresentEncode
-        from zenith_tpu.rhi import Format, TextureDesc
-        from zenith_tpu.rhi.formats import encode_present
+        from zenith.renderer import PresentEncode
+        from zenith.rhi import Format, TextureDesc
+        from zenith.rhi.formats import encode_present
 
         class App(_TriApp):
             def render(self, context):
@@ -122,7 +122,7 @@ class TestPresentFrom:
                 context.present_from(enc)
                 self._linear_handle = out
 
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
+        from zenith.rendergraph.graph import clear_frame_program_cache
 
         clear_frame_program_cache()
         window = Window(width=W, height=H, title="t")
@@ -138,10 +138,10 @@ class TestResize:
     def test_engine_resize_mid_run(self):
         """Resize between frames: the swapchain rebuilds, the retained
         program drops, and the next frames render at the new extent."""
-        from zenith_tpu.core.cli import EngineArgs
-        from zenith_tpu.core.events import WindowEvent
-        from zenith_tpu.engine import Engine
-        from zenith_tpu.window import Window
+        from zenith.core.cli import EngineArgs
+        from zenith.core.events import WindowEvent
+        from zenith.engine import Engine
+        from zenith.window import Window
 
         window = Window(width=96, height=32, title="t")
         app = _TriAppRetained(EngineArgs())
@@ -163,9 +163,9 @@ class TestResize:
     def test_sceneapp_resize_updates_jitter_extent_and_resets_taa(self):
         """SceneApp.resize must follow the window (stale extents mis-scale
         the TAA jitter) and drop the TAA history (shape change)."""
-        from zenith_tpu.core.cli import EngineArgs
-        from zenith_tpu.renderer import TemporalAA
-        from zenith_tpu.sandbox.scene import SceneApp
+        from zenith.core.cli import EngineArgs
+        from zenith.renderer import TemporalAA
+        from zenith.sandbox.scene import SceneApp
 
         app = SceneApp(EngineArgs(app_args=["--taa"]))
         app.taa = TemporalAA()
@@ -183,7 +183,7 @@ class TestAutoRetained:
     one pack + one dispatch of the cached program."""
 
     def test_triangle_app_auto_retains(self):
-        from zenith_tpu.sandbox.triangle import TriangleApp
+        from zenith.sandbox.triangle import TriangleApp
 
         calls = []
 
@@ -192,7 +192,7 @@ class TestAutoRetained:
                 calls.append(1)
                 super().render(context)
 
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
+        from zenith.rendergraph.graph import clear_frame_program_cache
 
         clear_frame_program_cache()
         window = Window(width=W, height=H, title="t")
@@ -206,9 +206,9 @@ class TestAutoRetained:
         """SceneApp defaults to auto-retained; mark_structure_dirty routes
         ONE frame through the rebuild path (the structure-change fallback),
         then retained execution resumes."""
-        from zenith_tpu.core.cli import EngineArgs
-        from zenith_tpu.engine import Engine
-        from zenith_tpu.sandbox.scene import SceneApp
+        from zenith.core.cli import EngineArgs
+        from zenith.engine import Engine
+        from zenith.sandbox.scene import SceneApp
 
         calls = []
 
@@ -239,9 +239,9 @@ class TestAutoRetained:
         assert frame[..., :3].std() > 1.0
 
     def test_no_retained_flag_rebuilds_every_frame(self):
-        from zenith_tpu.core.cli import EngineArgs
-        from zenith_tpu.engine import Engine
-        from zenith_tpu.sandbox.scene import SceneApp
+        from zenith.core.cli import EngineArgs
+        from zenith.engine import Engine
+        from zenith.sandbox.scene import SceneApp
 
         calls = []
 
@@ -260,4 +260,17 @@ class TestAutoRetained:
             app.tick(0.016)
             engine.render(app)
         assert len(calls) == 3
+        engine.shutdown()
+
+
+class TestEntryBudgetGrowth:
+    def test_growth_doubles_then_stops_at_the_cap(self):
+        """Overflow doubles every draw's entry budget, up to the cap; a
+        scene whose overflow doubling cannot absorb stops recompiling."""
+        from zenith.engine import Engine
+
+        engine = Engine(Window(width=32, height=16, title="t"))
+        scales = [engine.grow_entry_budget() for _ in range(6)]
+        assert scales == [2, 4, 8, 16, 16, 16]
+        assert engine.compile_options.budget_scale == Engine.MAX_BUDGET_SCALE
         engine.shutdown()

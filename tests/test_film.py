@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.renderer.post import FilmEffects, apply_film
+from zenith.renderer.post import FilmEffects, apply_film
 
 H, W = 64, 128
 
@@ -110,10 +110,10 @@ class TestGraph:
     def _run(self, options, film, seed=7):
         import jax
 
-        from zenith_tpu.renderer.post import PostProcess
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import CompileOptions
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.renderer.post import PostProcess
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import CompileOptions
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         post = PostProcess(film=film)
@@ -144,7 +144,7 @@ class TestGraph:
         return np.asarray(compiled.value(out))
 
     def test_film_changes_output_single_chip(self):
-        from zenith_tpu.rendergraph.graph import CompileOptions
+        from zenith.rendergraph.graph import CompileOptions
 
         base = self._run(CompileOptions(tile_h=8, tile_w=128), None)
         f = FilmEffects(chromatic_aberration=3.0, sharpen=0.5, grain=0.04)
@@ -156,8 +156,8 @@ class TestGraph:
     def test_spmd_ca_matches_single_device(self, cpu_devices):
         """CA forces the gather-full path under a mesh; output matches the
         single-device image exactly."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph.graph import CompileOptions
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph.graph import CompileOptions
 
         def film():
             f = FilmEffects(chromatic_aberration=3.0, sharpen=0.4,
@@ -174,8 +174,8 @@ class TestGraph:
     def test_spmd_halo_path_matches_single_device(self, cpu_devices):
         """No CA: the halo path carries sharpen+grain; global-row grain
         keeps bands identical to single-chip."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph.graph import CompileOptions
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph.graph import CompileOptions
 
         def film():
             f = FilmEffects(sharpen=0.5, grain=0.05)

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops import TileGrid, setup_triangles
-from zenith_tpu.ops.draw import assemble_triangles
-from zenith_tpu.rhi.state import (
+from zenith.ops import TileGrid, setup_triangles
+from zenith.ops.draw import assemble_triangles
+from zenith.rhi.state import (
     CompareOp,
     CullMode,
     DepthStencilDesc,
@@ -73,7 +73,7 @@ class TestTriangleStrip:
     def test_strip_render_equals_list_render(self):
         """End-to-end: a strip draw covers the same pixels as the equivalent
         triangle list (same winding ⇒ same culling)."""
-        from zenith_tpu.ops import bin_segmented, corner_attributes, raster_segmented
+        from zenith.ops import bin_segmented, corner_attributes, raster_segmented
 
         verts = np.array(
             [[-0.8, -0.8], [-0.8, 0.8], [0.0, -0.8], [0.0, 0.8], [0.8, -0.8]],
@@ -107,8 +107,8 @@ class TestTriangleStrip:
 
 class TestDepthBias:
     def _z_at_center(self, depth_bias=None, z0=0.5, slope=False):
-        from zenith_tpu.ops import bin_segmented, raster_segmented
-        from zenith_tpu.ops.geometry import setup_with_attrs
+        from zenith.ops import bin_segmented, raster_segmented
+        from zenith.ops.geometry import setup_with_attrs
 
         zs = np.array([z0, z0 + (0.2 if slope else 0.0), z0], np.float32)
         clip = np.array(
@@ -156,8 +156,8 @@ class TestDepthBias:
 
 class TestDepthClamp:
     def test_out_of_range_z_clamps_instead_of_discarding(self):
-        from zenith_tpu.ops import bin_segmented, raster_segmented
-        from zenith_tpu.ops.geometry import setup_with_attrs
+        from zenith.ops import bin_segmented, raster_segmented
+        from zenith.ops.geometry import setup_with_attrs
 
         # Triangle entirely past the far plane (z = 1.5 > 1).
         clip = np.array(
@@ -203,8 +203,8 @@ class TestAnisotropic:
         return mips
 
     def test_isotropic_footprint_matches_trilinear(self):
-        from zenith_tpu.ops.sampling import sample_texture
-        from zenith_tpu.rhi.sampler import SamplerConfig
+        from zenith.ops.sampling import sample_texture
+        from zenith.rhi.sampler import SamplerConfig
 
         base = self._checker()
         mips = self._mips(base)
@@ -220,8 +220,8 @@ class TestAnisotropic:
         )
 
     def test_anisotropic_footprint_sharper_than_trilinear(self):
-        from zenith_tpu.ops.sampling import sample_texture
-        from zenith_tpu.rhi.sampler import SamplerConfig
+        from zenith.ops.sampling import sample_texture
+        from zenith.rhi.sampler import SamplerConfig
 
         base = self._checker()
         mips = self._mips(base)
@@ -242,13 +242,13 @@ class TestAnisotropic:
 
 class TestStateValidation:
     def _mk_pipeline(self, state):
-        from zenith_tpu.rhi.pipeline import (
+        from zenith.rhi.pipeline import (
             GraphicPipeline,
             GraphicPipelineDesc,
             GraphicShaderInput,
         )
-        from zenith_tpu.rhi.shader import Shader
-        from zenith_tpu.rhi.formats import Format
+        from zenith.rhi.shader import Shader
+        from zenith.rhi.formats import Format
 
         vs = Shader.vertex("vs", lambda attrs, res: {"position": attrs["position"]})
         return GraphicPipeline(
@@ -290,9 +290,9 @@ class TestMSAA:
     def _render(self, samples):
         import jax.numpy as jnp
 
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import (
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import (
             Buffer,
             ColorAttachmentDesc,
             Format,
@@ -381,9 +381,9 @@ class TestMSAACrossNode:
         import jax.numpy as jnp
         from dataclasses import replace
 
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import (
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import (
             Buffer,
             ColorAttachmentDesc,
             GraphicShaderInput,
@@ -393,7 +393,7 @@ class TestMSAACrossNode:
             TextureDesc,
             VertexLayout,
         )
-        from zenith_tpu.rhi.state import LoadOp
+        from zenith.rhi.state import LoadOp
 
         device = RhiCore().create_render_device()
         clear_frame_program_cache()

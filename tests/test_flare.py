@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.renderer import LensFlare
-from zenith_tpu.renderer.flare import _apply_flare, _probe_visibility
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.renderer import LensFlare
+from zenith.renderer.flare import _apply_flare, _probe_visibility
 
 W, H = 128, 64
 
@@ -106,10 +106,10 @@ class TestSPMD:
         matches single-device exactly."""
         import jax
 
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import CompileOptions
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import CompileOptions
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         # Sun near the TOP band; with 8 shards its probe window is far
@@ -163,9 +163,9 @@ class TestGraphNode:
     def test_flare_node_in_graph(self):
         """The flare node traces into a frame program and brightens the
         HDR image near the streak row."""
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import CompileOptions
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import CompileOptions
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         flare = LensFlare(occlusion=False)

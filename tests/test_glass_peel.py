@@ -12,14 +12,14 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree
-from zenith_tpu.renderer import DeferredRenderer
-from zenith_tpu.renderer.scene import Scene, SceneObject
-from zenith_tpu.rendergraph import RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import CompileOptions
-from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-from zenith_tpu.rhi.resource import Texture
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree
+from zenith.renderer import DeferredRenderer
+from zenith.renderer.scene import Scene, SceneObject
+from zenith.rendergraph import RenderGraphBuilder
+from zenith.rendergraph.graph import CompileOptions
+from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+from zenith.rhi.resource import Texture
 
 W, H = 128, 96
 

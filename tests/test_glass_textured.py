@@ -10,14 +10,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree
-from zenith_tpu.renderer import DeferredRenderer
-from zenith_tpu.renderer.scene import DirectionalLight, Scene, SceneObject
-from zenith_tpu.rendergraph import RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import CompileOptions
-from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-from zenith_tpu.rhi.resource import Texture
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree
+from zenith.renderer import DeferredRenderer
+from zenith.renderer.scene import DirectionalLight, Scene, SceneObject
+from zenith.rendergraph import RenderGraphBuilder
+from zenith.rendergraph.graph import CompileOptions
+from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+from zenith.rhi.resource import Texture
 
 W, H = 128, 96
 
@@ -209,9 +209,9 @@ class TestOpsInstancedBlend:
         """ops-level: one instanced blended draw == the same geometry
         submitted as per-instance draws (records concatenate in instance
         order)."""
-        from zenith_tpu.ops.binning import TileGrid
-        from zenith_tpu.ops.draw import draw_indexed_batch
-        from zenith_tpu.rhi import (
+        from zenith.ops.binning import TileGrid
+        from zenith.ops.draw import draw_indexed_batch
+        from zenith.rhi import (
             ColorAttachmentDesc,
             GraphicPipelineAttachments,
             GraphicShaderInput,
@@ -219,11 +219,11 @@ class TestOpsInstancedBlend:
             attr,
             uniform,
         )
-        from zenith_tpu.rhi.pipeline import (
+        from zenith.rhi.pipeline import (
             GraphicPipeline,
             GraphicPipelineDesc,
         )
-        from zenith_tpu.rhi.state import (
+        from zenith.rhi.state import (
             CompareOp,
             CullMode,
             DepthStencilDesc,
@@ -332,20 +332,20 @@ class TestOpsInstancedBlend:
         )
 
     def test_instanced_non_blend_batch_supported(self):
-        from zenith_tpu.ops.binning import TileGrid
-        from zenith_tpu.ops.draw import draw_indexed_batch
-        from zenith_tpu.rhi import (
+        from zenith.ops.binning import TileGrid
+        from zenith.ops.draw import draw_indexed_batch
+        from zenith.rhi import (
             ColorAttachmentDesc,
             GraphicPipelineAttachments,
             GraphicShaderInput,
             Shader,
             attr,
         )
-        from zenith_tpu.rhi.pipeline import (
+        from zenith.rhi.pipeline import (
             GraphicPipeline,
             GraphicPipelineDesc,
         )
-        from zenith_tpu.rhi.state import (
+        from zenith.rhi.state import (
             GraphicPipelineState,
             VertexLayout,
         )

@@ -10,7 +10,7 @@ from pathlib import Path
 
 import numpy as np
 
-from zenith_tpu.rhi import (
+from zenith.rhi import (
     Buffer,
     Format,
     PipelineCache,
@@ -54,9 +54,9 @@ def _render_scene_frame():
     sys.path.insert(0, str(Path(__file__).parent))
     from test_renderers import H, OPTS, W, build_test_scene, make_camera
 
-    from zenith_tpu.renderer import DeferredRenderer, PostProcess
-    from zenith_tpu.rendergraph import RenderGraphBuilder
-    from zenith_tpu.sandbox.scene import sky_cube_texture
+    from zenith.renderer import DeferredRenderer, PostProcess
+    from zenith.rendergraph import RenderGraphBuilder
+    from zenith.sandbox.scene import sky_cube_texture
 
     device = RhiCore().create_render_device()
     scene = build_test_scene(device, num_lights=8)
@@ -110,15 +110,15 @@ def _render_textured_frame():
     sys.path.insert(0, str(Path(__file__).parent))
     from test_renderers import H, OPTS, W, make_camera
 
-    from zenith_tpu.renderer import (
+    from zenith.renderer import (
         DeferredRenderer,
         DirectionalLight,
         PostProcess,
         Scene,
         SceneObject,
     )
-    from zenith_tpu.rendergraph import RenderGraphBuilder
-    from zenith_tpu.sandbox.scene import brushed_texture, checker_texture
+    from zenith.rendergraph import RenderGraphBuilder
+    from zenith.sandbox.scene import brushed_texture, checker_texture
 
     device = RhiCore().create_render_device()
     rng = np.random.default_rng(7)

@@ -2,7 +2,7 @@
 goldens for the round-3 screen-space features so refactors can't silently
 shift their output. Each config renders ONE deterministic 128x64 frame
 through the PRODUCTION wiring (the same graph assembly as
-tools/profile_features.py / sandbox.scene) and pins the sRGB bytes.
+sandbox.scene) and pins the sRGB bytes.
 
 Regenerate after an INTENTIONAL rendering change (with the oracle suite
 green):  ZENITH_REGEN_GOLDEN=1 pytest tests/test_golden_features.py
@@ -28,16 +28,16 @@ CONFIGS = ("ssr", "fog", "sky", "flare", "film", "contact", "decals")
 def _render(cfg: str) -> np.ndarray:
     from test_renderers import H, OPTS, W, build_test_scene, make_camera
 
-    from zenith_tpu.renderer import DeferredRenderer, PostProcess
-    from zenith_tpu.rendergraph import RenderGraphBuilder
-    from zenith_tpu.rhi import (
+    from zenith.renderer import DeferredRenderer, PostProcess
+    from zenith.rendergraph import RenderGraphBuilder
+    from zenith.rhi import (
         Format,
         PipelineCache,
         RhiCore,
         TextureDesc,
         encode_present,
     )
-    from zenith_tpu.sandbox.scene import sky_cube_texture
+    from zenith.sandbox.scene import sky_cube_texture
 
     device = RhiCore().create_render_device()
     scene = build_test_scene(device, num_lights=8)
@@ -47,7 +47,7 @@ def _render(cfg: str) -> np.ndarray:
         # ground is roughness 0.9 — past the 0.6 gate — and the cube's
         # own rays reflect sky and miss, so SSR would be a no-op and the
         # golden would pin nothing.)
-        from zenith_tpu.renderer import SceneObject
+        from zenith.renderer import SceneObject
 
         mirror = SceneObject.quad(
             device, "mirror", size=200.0, z=0.0,
@@ -66,12 +66,12 @@ def _render(cfg: str) -> np.ndarray:
     if cfg == "contact":
         scene.sun = dataclasses.replace(scene.sun, contact_shadows=True)
     if cfg == "sky":
-        from zenith_tpu.renderer import Atmosphere
+        from zenith.renderer import Atmosphere
 
         scene = dataclasses.replace(scene, skybox=None)
         scene.atmosphere = Atmosphere()
     if cfg == "decals":
-        from zenith_tpu.renderer.decal import Decal
+        from zenith.renderer.decal import Decal
 
         scene.decals.append(Decal(
             name="splat0", position=(0.0, -20.0, 0.1),
@@ -84,7 +84,7 @@ def _render(cfg: str) -> np.ndarray:
 
     renderer = DeferredRenderer(scene)
     if cfg == "film":
-        from zenith_tpu.renderer import FilmEffects
+        from zenith.renderer import FilmEffects
 
         post = PostProcess(film=FilmEffects(
             chromatic_aberration=2.5, sharpen=0.4, grain=0.035
@@ -93,15 +93,15 @@ def _render(cfg: str) -> np.ndarray:
         post = PostProcess()
     ssr = fog = flare = None
     if cfg == "ssr":
-        from zenith_tpu.renderer import ScreenSpaceReflections
+        from zenith.renderer import ScreenSpaceReflections
 
         ssr = ScreenSpaceReflections()
     if cfg == "fog":
-        from zenith_tpu.renderer import VolumetricFog
+        from zenith.renderer import VolumetricFog
 
         fog = VolumetricFog()
     if cfg == "flare":
-        from zenith_tpu.renderer import LensFlare
+        from zenith.renderer import LensFlare
 
         flare = LensFlare()
 
@@ -168,12 +168,12 @@ def _render_base() -> np.ndarray:
     # Same scene, no feature: the differ-from-base reference.
     from test_renderers import H, OPTS, W, build_test_scene, make_camera
 
-    from zenith_tpu.renderer import DeferredRenderer, PostProcess
-    from zenith_tpu.rendergraph import RenderGraphBuilder
-    from zenith_tpu.rhi import (
+    from zenith.renderer import DeferredRenderer, PostProcess
+    from zenith.rendergraph import RenderGraphBuilder
+    from zenith.rhi import (
         Format, PipelineCache, RhiCore, TextureDesc, encode_present,
     )
-    from zenith_tpu.sandbox.scene import sky_cube_texture
+    from zenith.sandbox.scene import sky_cube_texture
 
     device = RhiCore().create_render_device()
     scene = build_test_scene(device, num_lights=8)

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.renderer.post import (
+from zenith.renderer.post import (
     ColorGrade,
     apply_grade_post,
     apply_grade_pre,
@@ -80,8 +80,8 @@ class TestSPMD:
         bands must concatenate to the single-device image exactly."""
         from jax.sharding import PartitionSpec as P
 
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.renderer.post import tone_and_bloom_banded
+        from zenith.parallel.sharding import default_mesh
+        from zenith.renderer.post import tone_and_bloom_banded
 
         h2, w2 = 256, 128
         rng = np.random.default_rng(7)

@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.renderer.hud import (
+from zenith.renderer.hud import (
     GLYPH_H,
     GLYPH_W,
     HudOverlay,
@@ -51,9 +51,9 @@ class TestBitfont:
 
 class TestGraph:
     def _compile_run(self, hud, options=None):
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import CompileOptions
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import CompileOptions
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         builder = RenderGraphBuilder()
@@ -90,7 +90,7 @@ class TestGraph:
         assert box.min() < 0.25 - 0.05
 
     def test_text_change_never_recompiles(self):
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
@@ -107,13 +107,13 @@ class TestGraph:
     def test_scene_hud_one_program(self):
         """--hud on the sandbox: the FPS text updates every frame yet ONE
         frame program serves the run (the bitmap is a dynamic)."""
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")
@@ -131,8 +131,8 @@ class TestGraph:
     def test_spmd_matches_single_device(self, cpu_devices):
         """The overlay spans several 8-row bands (margin 8, height 16):
         the padded dynamic-slice composite must tile exactly."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph.graph import CompileOptions
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph.graph import CompileOptions
 
         def hud():
             h = HudOverlay(max_chars=10, scale=2, margin=8)
@@ -153,9 +153,9 @@ class TestOverflowIndicator:
 
     def _run(self, *, overflow: bool, indicator: bool = True,
              options=None):
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import CompileOptions
-        from zenith_tpu.rhi import (
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import CompileOptions
+        from zenith.rhi import (
             Buffer,
             ColorAttachmentDesc,
             CullMode,
@@ -167,15 +167,14 @@ class TestOverflowIndicator:
             VertexLayout,
             attr,
         )
-        from zenith_tpu.rhi.state import GraphicPipelineState
+        from zenith.rhi.state import GraphicPipelineState
 
         device = RhiCore().create_render_device()
         builder = RenderGraphBuilder()
         ldr = builder.create(TextureDesc.color("ldr", W, H))
 
         # 300 coincident full-screen triangles; a tiny entry budget
-        # (blocks of 128 (tile, record) pairs, ops/binning.py:93) cannot
-        # hold 300 entries x 8 tiles → bin overflow.
+        # cannot hold 300 entries x 8 tiles → bin overflow.
         tri = np.array(
             [[-3, -3, 0.5], [3, -3, 0.5], [0, 3, 0.5]], np.float32
         )
@@ -198,7 +197,7 @@ class TestOverflowIndicator:
             h, w = builtins.depth.shape
             return _j.full((h, w, 4), 0.25, _j.float32)
 
-        from zenith_tpu.rhi import Shader
+        from zenith.rhi import Shader
 
         vsd = Shader.vertex("ovf.vs", vs, inputs=[attr("position", 3)])
         fsd = Shader.fragment("ovf.fs", fs)
@@ -228,7 +227,7 @@ class TestOverflowIndicator:
         hud.set_text("FPS 1")
         hud.render_to(builder, ldr)
         builder.export(ldr)
-        from zenith_tpu.rhi import PipelineCache as _PC
+        from zenith.rhi import PipelineCache as _PC
 
         compiled = builder.build().compile(
             device, _PC(),
@@ -259,8 +258,8 @@ class TestOverflowIndicator:
         total, so EVERY band composites a bar. (No bit-equality check: an
         overflowing draw DROPS records, and which records drop depends on
         the per-shard binning — the image itself legitimately differs.)"""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph.graph import CompileOptions
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph.graph import CompileOptions
 
         mesh = default_mesh(8, backend="cpu")
         _img, bar = self._run(

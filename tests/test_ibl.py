@@ -11,7 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.ops.ibl import (
+from zenith.ops.ibl import (
     cube_face_directions,
     cube_texel_solid_angles,
     env_brdf_approx,
@@ -20,7 +20,7 @@ from zenith_tpu.ops.ibl import (
     irradiance_sh9_host,
     prefilter_ggx,
 )
-from zenith_tpu.ops.sampling import (
+from zenith.ops.sampling import (
     SamplerConfig,
     cube_direction_to_face_uv,
     sample_cube,
@@ -185,7 +185,7 @@ class TestSampleCubeLod:
 
 class TestEnvironmentLight:
     def test_build_shapes(self):
-        from zenith_tpu.renderer import EnvironmentLight
+        from zenith.renderer import EnvironmentLight
 
         env = EnvironmentLight.from_cube_pixels(
             "env", constant_cube(32, (1.0, 1.0, 1.0)), num_mips=3, samples=16
@@ -197,7 +197,7 @@ class TestEnvironmentLight:
         assert env.texture.mips[2].shape == (6, 8, 8, 4)
 
     def test_intensity_scales(self):
-        from zenith_tpu.renderer import EnvironmentLight
+        from zenith.renderer import EnvironmentLight
 
         base = EnvironmentLight.from_cube_pixels(
             "e1", constant_cube(16, (0.5, 0.5, 0.5)), num_mips=2, samples=8
@@ -213,11 +213,11 @@ class TestDeferredEnvironment:
     """End-to-end: environment-only lighting through the deferred resolve."""
 
     def _render(self, device, scene, W=96, H=48):
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import DeferredRenderer
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, TextureDesc
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import DeferredRenderer
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, TextureDesc
 
         cam = Camera(fov_y=Degree(45.0), aspect_ratio=W / H)
         cam.set_position(np.array([0.0, -60.0, 25.0], np.float32))
@@ -235,13 +235,13 @@ class TestDeferredEnvironment:
 
     @pytest.fixture
     def device(self):
-        from zenith_tpu.rhi import RhiCore
+        from zenith.rhi import RhiCore
 
         return RhiCore().create_render_device()
 
     def _scene(self, device, **obj_kwargs):
-        from tests.test_renderers import make_cube
-        from zenith_tpu.renderer import Scene, SceneObject
+        from test_renderers import make_cube
+        from zenith.renderer import Scene, SceneObject
 
         cube = SceneObject.from_mesh(
             device, make_cube(size=14.0, z0=8.0), "cube", bin_capacity=64,
@@ -250,7 +250,7 @@ class TestDeferredEnvironment:
         return Scene(objects=[cube], sun=None, point_lights=[])
 
     def test_env_tints_diffuse_and_background(self, device):
-        from zenith_tpu.renderer import EnvironmentLight
+        from zenith.renderer import EnvironmentLight
 
         scene = self._scene(
             device, base_color=(1.0, 1.0, 1.0, 1.0), roughness=0.9
@@ -270,7 +270,7 @@ class TestDeferredEnvironment:
         """A smooth metal surface reflects the bright face; a rough one
         spreads it — mirror specular must exceed rough specular at the
         reflected direction's pixel."""
-        from zenith_tpu.renderer import EnvironmentLight
+        from zenith.renderer import EnvironmentLight
 
         # Camera sits at -Y looking at the cube's front (-Y-normal) face,
         # which mirror-reflects the -Y region of the environment.
@@ -292,9 +292,9 @@ class TestDeferredEnvironment:
         assert mirror.max() > rough.max() * 1.3, (mirror.max(), rough.max())
 
     def test_explicit_skybox_overrides_env_background(self, device):
-        from zenith_tpu.renderer import EnvironmentLight
-        from zenith_tpu.rhi import Texture as RhiTexture
-        from zenith_tpu.rhi import Format
+        from zenith.renderer import EnvironmentLight
+        from zenith.rhi import Texture as RhiTexture
+        from zenith.rhi import Format
 
         scene = self._scene(device, base_color=(1.0, 1.0, 1.0, 1.0))
         scene.environment = EnvironmentLight.from_cube_pixels(

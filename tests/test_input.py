@@ -2,7 +2,7 @@
 
 import pytest
 
-from zenith_tpu.core.events import (
+from zenith.core.events import (
     ElementState,
     Focused,
     KeyboardInput,
@@ -11,7 +11,7 @@ from zenith_tpu.core.events import (
     MouseButton,
     MouseInput,
 )
-from zenith_tpu.core.input import InputActionMapper, InputManager, KeyState
+from zenith.core.input import InputActionMapper, InputManager, KeyState
 
 
 def press(key):
@@ -123,7 +123,7 @@ class TestActionMapper:
 
 class TestSameFrameTap:
     """Press+release batched into ONE event pump (a quick tap through a
-    network front-end that flushes every ~16 ms, e.g. zenith_tpu.viewer).
+    network front-end that flushes every ~16 ms, e.g. zenith.viewer).
     The prev-frame set diff alone would lose the tap entirely; the latch
     makes it JUST_PRESSED for one frame, JUST_RELEASED the next."""
 

@@ -4,16 +4,16 @@ N instances through one draw must match N separate draws exactly."""
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.ops import TileGrid, clear_color, clear_depth
-from zenith_tpu.ops.draw import draw_indexed
-from zenith_tpu.rhi.pipeline import (
+from zenith.ops import TileGrid, clear_color, clear_depth
+from zenith.ops.draw import draw_indexed
+from zenith.rhi.pipeline import (
     GraphicPipeline,
     GraphicPipelineDesc,
     GraphicShaderInput,
 )
-from zenith_tpu.rhi.formats import Format
-from zenith_tpu.rhi.shader import Shader
-from zenith_tpu.rhi.state import (
+from zenith.rhi.formats import Format
+from zenith.rhi.shader import Shader
+from zenith.rhi.state import (
     ColorAttachmentDesc,
     CullMode,
     DepthStencilDesc,
@@ -182,17 +182,17 @@ class TestInstancedScene:
 
         from test_renderers import H, OPTS, W, make_camera, make_cube
 
-        from zenith_tpu.core import mathtypes as m
-        from zenith_tpu.renderer import (
+        from zenith.core import mathtypes as m
+        from zenith.renderer import (
             DeferredRenderer,
             DirectionalLight,
             PostProcess,
             Scene,
             SceneObject,
         )
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         cam = make_camera()
@@ -254,16 +254,16 @@ class TestInstancedScene:
         sys.path.insert(0, "tests")
         from test_renderers import H, OPTS, W, make_camera, make_cube
 
-        from zenith_tpu.core import mathtypes as m
-        from zenith_tpu.renderer import (
+        from zenith.core import mathtypes as m
+        from zenith.renderer import (
             DirectionalLight,
             ForwardShadowRenderer,
             Scene,
             SceneObject,
         )
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         cam = make_camera()
@@ -321,16 +321,16 @@ class TestInstancedScene:
         sys.path.insert(0, "tests")
         from test_renderers import H, OPTS, W, make_camera, make_cube
 
-        from zenith_tpu.renderer import (
+        from zenith.renderer import (
             DeferredRenderer,
             DirectionalLight,
             ForwardShadowRenderer,
             Scene,
             SceneObject,
         )
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         cam = make_camera()

@@ -9,9 +9,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.cli import EngineArgs
-from zenith_tpu.core.events import (
+from zenith.core.camera import Camera
+from zenith.core.cli import EngineArgs
+from zenith.core.events import (
     ElementState,
     KeyboardInput,
     KeyCode,
@@ -19,7 +19,7 @@ from zenith_tpu.core.events import (
     MouseInput,
     MouseMotion,
 )
-from zenith_tpu.core.mathtypes import Degree
+from zenith.core.mathtypes import Degree
 
 
 class _FakeWindow:
@@ -40,8 +40,8 @@ def _prep(app):
 
 
 def _apps():
-    from zenith_tpu.sandbox.scene import SceneApp
-    from zenith_tpu.sandbox.terrain import TerrainApp
+    from zenith.sandbox.scene import SceneApp
+    from zenith.sandbox.terrain import TerrainApp
 
     return [
         ("scene", _prep(SceneApp(EngineArgs.parse_args([])))),

@@ -9,8 +9,8 @@ light.
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.ops.lighting import accumulate_point_lights
-from zenith_tpu.renderer.deferred import _ggx_brdf
+from zenith.ops.lighting import accumulate_point_lights
+from zenith.renderer.deferred import _ggx_brdf
 
 H, W = 64, 256
 

@@ -13,16 +13,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops import TileGrid, clear_color, clear_depth
-from zenith_tpu.ops.draw import assemble_lines, draw_indexed
-from zenith_tpu.rhi.formats import Format
-from zenith_tpu.rhi.pipeline import (
+from zenith.ops import TileGrid, clear_color, clear_depth
+from zenith.ops.draw import assemble_lines, draw_indexed
+from zenith.rhi.formats import Format
+from zenith.rhi.pipeline import (
     GraphicPipeline,
     GraphicPipelineDesc,
     GraphicShaderInput,
 )
-from zenith_tpu.rhi.shader import Shader
-from zenith_tpu.rhi.state import (
+from zenith.rhi.shader import Shader
+from zenith.rhi.state import (
     ColorAttachmentDesc,
     CullMode,
     DepthStencilDesc,

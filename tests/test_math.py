@@ -9,8 +9,8 @@ import math
 import numpy as np
 import pytest
 
-from zenith_tpu.core import mathtypes as m
-from zenith_tpu.core.mathtypes import Degree, Radians
+from zenith.core import mathtypes as m
+from zenith.core.mathtypes import Degree, Radians
 
 
 class TestAngles:

@@ -7,13 +7,13 @@ import math
 
 import numpy as np
 
-from zenith_tpu.asset import AssetUrl
-from zenith_tpu.asset.render_types import (
+from zenith.asset import AssetUrl
+from zenith.asset.render_types import (
     AnimationChannel,
     AnimationClip,
     Mesh,
 )
-from zenith_tpu.renderer.animation import sample_morph_weights
+from zenith.renderer.animation import sample_morph_weights
 
 
 class TestWeightSampling:
@@ -41,7 +41,7 @@ class TestMorphBlend:
     def test_matches_numpy_oracle(self, rng):
         import jax.numpy as jnp
 
-        from zenith_tpu.renderer.deferred import _morphed_position
+        from zenith.renderer.deferred import _morphed_position
 
         n, t = 48, 3
         pos = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
@@ -57,7 +57,7 @@ class TestMorphBlend:
 
 class TestRoundTrip:
     def test_morph_mesh_save_load(self, tmp_path):
-        from zenith_tpu.sandbox.scene import morphing_blob
+        from zenith.sandbox.scene import morphing_blob
 
         mesh = morphing_blob(rings=6, sides=8)
         assert mesh.num_morph_targets == 2
@@ -71,8 +71,8 @@ class TestRoundTrip:
 
 class TestGltfTargets:
     def test_bake_targets_and_weights_animation(self, tmp_path):
-        import zenith_tpu.asset as asset_mod
-        from zenith_tpu.asset import AssetManager, registry
+        import zenith.asset as asset_mod
+        from zenith.asset import AssetManager, registry
 
         asset_mod.initialize()
         pos = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
@@ -148,13 +148,13 @@ class TestGltfTargets:
 
 class TestMorphPipeline:
     def _render(self, weights):
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import DeferredRenderer, Scene, SceneObject
-        from zenith_tpu.renderer.scene import DirectionalLight
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-        from zenith_tpu.sandbox.scene import morphing_blob
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import DeferredRenderer, Scene, SceneObject
+        from zenith.renderer.scene import DirectionalLight
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.sandbox.scene import morphing_blob
 
         core = RhiCore()
         device = core.create_render_device()

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.renderer.motion_blur import MotionBlur, motion_blur_resolve
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.renderer.motion_blur import MotionBlur, motion_blur_resolve
 
 W, H = 64, 32
 
@@ -170,13 +170,13 @@ class TestSceneMotionBlur:
         """Full deferred scene with --motion-blur: one frame program across
         frames (the prev-VP/params ride dynamics — zero recompiles while
         the camera orbits), finite output."""
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")
@@ -198,9 +198,9 @@ class TestSPMD:
         """The motion-blur node under CompileOptions(mesh): streak gathers
         run on the gathered full surfaces and the band slices back —
         output matches single-device exactly."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops.binning import TileGrid
-from zenith_tpu.ops.draw import draw_indexed
-from zenith_tpu.rhi import (
+from zenith.ops.binning import TileGrid
+from zenith.ops.draw import draw_indexed
+from zenith.rhi import (
     ColorAttachmentDesc,
     Format,
     GraphicPipelineAttachments,
@@ -19,8 +19,8 @@ from zenith_tpu.rhi import (
     Shader,
     attr,
 )
-from zenith_tpu.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
-from zenith_tpu.rhi.state import (
+from zenith.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
+from zenith.rhi.state import (
     CompareOp,
     CullMode,
     DepthStencilDesc,
@@ -140,8 +140,8 @@ class TestShadeOncePerPixel:
         assert (out[..., 3] > 0.999).sum() > 200
 
     def test_graph_level_per_pixel_msaa(self):
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
         builder = RenderGraphBuilder()
@@ -182,8 +182,8 @@ class TestMsaaSubresource:
     mutual exclusion, VERDICT weak #8)."""
 
     def _graph_draw(self, make_desc, write_kw, expect_shape, sub):
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, RhiCore
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, RhiCore
 
         device = RhiCore().create_render_device()
         builder = RenderGraphBuilder()
@@ -213,7 +213,7 @@ class TestMsaaSubresource:
         return val, surf
 
     def test_msaa_render_to_mip(self):
-        from zenith_tpu.rhi import TextureDesc
+        from zenith.rhi import TextureDesc
 
         val, surf = self._graph_draw(
             lambda: TextureDesc("mt", W * 2, H * 2, Format.RGBA32F,
@@ -226,7 +226,7 @@ class TestMsaaSubresource:
         assert partial.sum() > 10  # fractional edge coverage = real MSAA
 
     def test_msaa_render_to_layer(self):
-        from zenith_tpu.rhi import TextureDesc
+        from zenith.rhi import TextureDesc
 
         val, surf = self._graph_draw(
             lambda: TextureDesc.new_2d_array("lt", W, H, 3, Format.RGBA32F),
@@ -239,7 +239,7 @@ class TestMsaaSubresource:
         assert partial.sum() > 10
 
     def test_msaa_render_to_mip_layer(self):
-        from zenith_tpu.rhi import TextureDesc
+        from zenith.rhi import TextureDesc
 
         val, surf = self._graph_draw(
             lambda: TextureDesc("mlt", W * 2, H * 2, Format.RGBA32F,
@@ -253,8 +253,8 @@ class TestMsaaSubresource:
     def test_msaa_layer_matches_whole_surface_render(self):
         """The same draw at 4x into an array layer must bit-match the 4x
         whole-surface render — the sub-view is plumbing, not math."""
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         device = RhiCore().create_render_device()
 

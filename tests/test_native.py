@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from zenith_tpu.native import encode_png, fast_hash, native_available
+from zenith.native import encode_png, fast_hash, native_available
 
 
 class TestNative:
@@ -32,11 +32,39 @@ class TestNative:
             back = np.asarray(Image.open(io.BytesIO(data)))
             np.testing.assert_array_equal(back, px)
 
+    @pytest.mark.parametrize("c", [3, 4])
+    def test_stdlib_png_fallback_roundtrip(self, rng, c):
+        """The no-toolchain PNG writer (zlib + struct) decodes to the same
+        pixels, read back with zlib alone."""
+        import struct
+        import zlib
+
+        from zenith.native import _encode_png_py
+
+        px = rng.integers(0, 256, size=(9, 13, c)).astype(np.uint8)
+        data = _encode_png_py(px)
+        assert data[:8] == bytes([137, 80, 78, 71, 13, 10, 26, 10])
+        pos, chunks = 8, {}
+        while pos < len(data):
+            (n,) = struct.unpack(">I", data[pos:pos + 4])
+            kind = data[pos + 4:pos + 8]
+            body = data[pos + 8:pos + 8 + n]
+            (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+            assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
+            chunks[kind] = body
+            pos += 12 + n
+        w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+        assert (w, h, depth, ctype) == (13, 9, 8, 6 if c == 4 else 2)
+        raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+        raw = raw.reshape(9, 1 + 13 * c)
+        assert (raw[:, 0] == 0).all()
+        np.testing.assert_array_equal(raw[:, 1:].reshape(9, 13, c), px)
+
 
 class TestCommandShims:
     def test_upload_pool_batches(self):
-        from zenith_tpu.rhi import RhiCore
-        from zenith_tpu.rhi.command import ImmediateCommandEncoder, UploadPool
+        from zenith.rhi import RhiCore
+        from zenith.rhi.command import ImmediateCommandEncoder, UploadPool
 
         device = RhiCore().create_render_device()
         pool = UploadPool(device)
@@ -56,8 +84,8 @@ class TestCommandShims:
         np.testing.assert_array_equal(np.asarray(result), 2.0)
 
     def test_defer_release_stats(self):
-        from zenith_tpu.rhi import Buffer, BufferDesc
-        from zenith_tpu.rhi.command import DeferReleaseQueue
+        from zenith.rhi import Buffer, BufferDesc
+        from zenith.rhi.command import DeferReleaseQueue
 
         q = DeferReleaseQueue(num_frames=3)
         q.defer(Buffer(BufferDesc("x", (4,))))
@@ -70,7 +98,7 @@ class TestCommandShims:
 
 class TestVertexDerive:
     def test_derive_and_pack(self):
-        from zenith_tpu.rhi.derive import vec3, vertex_layout
+        from zenith.rhi.derive import vec3, vertex_layout
 
         @vertex_layout
         class Vertex:
@@ -84,7 +112,7 @@ class TestVertexDerive:
         np.testing.assert_array_equal(fields["color"][0], [1, 0, 0])
 
     def test_rejects_unknown_type(self):
-        from zenith_tpu.rhi.derive import vertex_layout
+        from zenith.rhi.derive import vertex_layout
 
         with pytest.raises(TypeError, match="unsupported"):
             @vertex_layout
@@ -99,8 +127,8 @@ class TestDoctests:
         pins PEP-563 string-annotation handling)."""
         import doctest
 
-        import zenith_tpu.asset as asset_mod
-        import zenith_tpu.rhi.derive as derive_mod
+        import zenith.asset as asset_mod
+        import zenith.rhi.derive as derive_mod
 
         for mod in (asset_mod, derive_mod):
             result = doctest.testmod(mod)

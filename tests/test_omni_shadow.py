@@ -5,7 +5,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.renderer.omni import omni_face_matrices, omni_reference_z
+from zenith.renderer.omni import omni_face_matrices, omni_reference_z
 
 
 class TestFaceMath:
@@ -14,7 +14,7 @@ class TestFaceMath:
         cube_direction_to_face_uv selects — the NDC uv must equal the
         table's uv and the NDC z the analytic z(axis distance): the two
         sides of the shadow lookup agree by construction."""
-        from zenith_tpu.ops.sampling import cube_direction_to_face_uv
+        from zenith.ops.sampling import cube_direction_to_face_uv
 
         light = np.array([3.0, -2.0, 5.0])
         near, far = 0.3, 60.0
@@ -52,16 +52,16 @@ class TestFaceMath:
 
 class TestSceneOmni:
     def _render(self, cast_shadows):
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import (
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import (
             DeferredRenderer,
             PointLight,
             Scene,
             SceneObject,
         )
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()

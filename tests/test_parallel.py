@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 
 from np_reference import render_reference
-from zenith_tpu.parallel import default_mesh, make_row_sharded_frame
-from zenith_tpu.rhi import (
+from zenith.parallel import default_mesh, make_row_sharded_frame
+from zenith.rhi import (
     ColorAttachmentDesc,
     CullMode,
     Format,
@@ -20,7 +20,7 @@ from zenith_tpu.rhi import (
     Shader,
     VertexLayout,
 )
-from zenith_tpu.rhi.state import DepthStencilDesc, GraphicPipelineState
+from zenith.rhi.state import DepthStencilDesc, GraphicPipelineState
 
 W, H = 128, 64  # 8 devices × 8-row bands
 
@@ -131,10 +131,10 @@ class TestEngineSPMD:
         sys.path.insert(0, "tests")
         from test_renderers import build_test_scene, make_camera
 
-        from zenith_tpu.renderer import ForwardShadowRenderer
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import RhiCore, TextureDesc
+        from zenith.renderer import ForwardShadowRenderer
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
@@ -181,10 +181,10 @@ class TestSortLast:
     second parallelism axis beside the row-band sort-first path."""
 
     def test_matches_single_device(self, cpu_devices, rng):
-        from zenith_tpu.ops import TileGrid, clear_color, clear_depth
-        from zenith_tpu.ops.draw import draw_indexed
-        from zenith_tpu.parallel import default_mesh, make_sort_last_frame
-        from zenith_tpu.rhi import (
+        from zenith.ops import TileGrid, clear_color, clear_depth
+        from zenith.ops.draw import draw_indexed
+        from zenith.parallel import default_mesh, make_sort_last_frame
+        from zenith.rhi import (
             ColorAttachmentDesc,
             Format,
             GraphicPipelineAttachments,
@@ -245,7 +245,7 @@ class TestBandedPost:
     def test_banded_bloom_matches_single(self, cpu_devices, rng):
         from jax.sharding import PartitionSpec as P
 
-        from zenith_tpu.renderer.post import (
+        from zenith.renderer.post import (
             tone_and_bloom,
             tone_and_bloom_banded,
         )
@@ -272,10 +272,10 @@ class TestBandedPost:
         """Full graph path: a band-local generator node writes the HDR
         attachment, the 'post' lambda under CompileOptions(mesh) takes the
         halo-exchange path, and the result matches single-device output."""
-        from zenith_tpu.renderer import PostProcess
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.renderer import PostProcess
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
@@ -323,15 +323,15 @@ class TestBandedPost:
 
 
 class TestBinarySwapCompositor:
-    """composite_depth (binary swap, O(H·W) ICI) must be BIT-EQUAL to the
+    """composite_depth (binary swap, O(H·W) cross-device traffic) must be BIT-EQUAL to the
     all_gather reference compositor — including equal-z ties, which must
     resolve to the lowest device rank (earliest submission)."""
 
     def test_bit_equal_to_all_gather_with_ties(self, cpu_devices, rng):
         from jax.sharding import PartitionSpec as P
 
-        from zenith_tpu.parallel import default_mesh
-        from zenith_tpu.parallel.sharding import (
+        from zenith.parallel import default_mesh
+        from zenith.parallel.sharding import (
             composite_depth,
             composite_depth_all_gather,
         )
@@ -366,7 +366,7 @@ class TestBinarySwapCompositor:
     def test_non_power_of_two_falls_back(self, cpu_devices, rng):
         from jax.sharding import PartitionSpec as P
 
-        from zenith_tpu.parallel.sharding import (
+        from zenith.parallel.sharding import (
             composite_depth,
             composite_depth_all_gather,
             default_mesh,
@@ -399,18 +399,18 @@ class TestDeferredSharded:
         match the single-device render."""
         import numpy as np
 
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians, mat4_translation
-        from zenith_tpu.parallel import default_mesh
-        from zenith_tpu.renderer import DeferredRenderer
-        from zenith_tpu.renderer.scene import (
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians, mat4_translation
+        from zenith.parallel import default_mesh
+        from zenith.renderer import DeferredRenderer
+        from zenith.renderer.scene import (
             DirectionalLight,
             PointLight,
             Scene,
             SceneObject,
         )
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
@@ -479,13 +479,13 @@ class TestDeferredSharded:
         background) must match single-device."""
         import numpy as np
 
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.parallel import default_mesh
-        from zenith_tpu.renderer import DeferredRenderer, EnvironmentLight
-        from zenith_tpu.renderer.scene import Scene, SceneObject
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.parallel import default_mesh
+        from zenith.renderer import DeferredRenderer, EnvironmentLight
+        from zenith.renderer.scene import Scene, SceneObject
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
@@ -544,10 +544,10 @@ class TestMSAAPersistenceUnderMesh:
     def _render(self, mesh):
         from dataclasses import replace
 
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import Buffer, MultisampleState, RhiCore, TextureDesc
-        from zenith_tpu.rhi.state import LoadOp
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import Buffer, MultisampleState, RhiCore, TextureDesc
+        from zenith.rhi.state import LoadOp
 
         w2, h2 = 128, 128  # 8 devices x 16-row bands
         device = RhiCore().create_render_device()

@@ -13,14 +13,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.parallel import default_mesh
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import (
+from zenith.parallel import default_mesh
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.rendergraph.graph import (
     AUTO_SL_MIN_TRIS,
     _auto_prefers_sort_last,
     clear_frame_program_cache,
 )
-from zenith_tpu.rhi import (
+from zenith.rhi import (
     ColorAttachmentDesc,
     CullMode,
     Format,
@@ -33,7 +33,7 @@ from zenith_tpu.rhi import (
     TextureDesc,
     VertexLayout,
 )
-from zenith_tpu.rhi.state import DepthStencilDesc, GraphicPipelineState
+from zenith.rhi.state import DepthStencilDesc, GraphicPipelineState
 
 W, H = 128, 64  # 8 devices x 8-row bands
 
@@ -52,7 +52,7 @@ class TestBandOccupancyHeuristic:
         assert not _auto_prefers_sort_last([(BIG, 0.0, 1.0)], 8)
 
     def test_small_load_stays_sort_first_even_clustered(self):
-        # Below the minimum the composite's O(H*W) ICI dominates any
+        # Below the minimum the composite's O(H*W) cross-device traffic dominates any
         # imbalance win.
         assert not _auto_prefers_sort_last(
             [(AUTO_SL_MIN_TRIS - 1, 0.0, 0.125)], 8

@@ -4,7 +4,7 @@ feedback + instanced-draw loop end-to-end."""
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.renderer.particles import _STATE_COLS, particle_step
+from zenith.renderer.particles import _STATE_COLS, particle_step
 
 
 def _alive_state(p):
@@ -82,13 +82,13 @@ class TestEngineLoop:
         """Full loop: sim compute node + exported state fed back each frame
         + instanced draw at device-resident positions — positions move,
         ONE frame program, no host round trip."""
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")

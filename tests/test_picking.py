@@ -4,26 +4,26 @@ DeferredRenderer(id_buffer=True) writes a 4th R32F G-buffer attachment
 holding the 1-based scene-object index per pixel (background = 0). The
 plane is exported; pick() maps a readback pixel to the SceneObject. The
 reference has no picking — this is an engine-grade selection feature the
-TPU build adds on top of the per-draw-uniform machinery (no second
+build adds on top of the per-draw-uniform machinery (no second
 geometry pass).
 """
 
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.rendergraph import RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import CompileOptions
-from zenith_tpu.renderer import (
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.rendergraph import RenderGraphBuilder
+from zenith.rendergraph.graph import CompileOptions
+from zenith.renderer import (
     DeferredRenderer,
     DirectionalLight,
     Scene,
     SceneObject,
 )
-from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
-from tests.test_renderers import make_cube
+from test_renderers import make_cube
 
 W, H = 128, 64
 OPTS = CompileOptions(tile_h=8, tile_w=128)

@@ -5,15 +5,15 @@ import math
 import jax
 import numpy as np
 
-from zenith_tpu.core.mathtypes import Radians
-from zenith_tpu.renderer import (
+from zenith.core.mathtypes import Radians
+from zenith.renderer import (
     DeferredRenderer,
     Scene,
     SceneObject,
     capture_reflection_probe,
 )
-from zenith_tpu.renderer.probe import _ProbeCamera
-from zenith_tpu.rhi import RhiCore
+from zenith.renderer.probe import _ProbeCamera
+from zenith.rhi import RhiCore
 
 
 class TestFaceCameras:
@@ -23,7 +23,7 @@ class TestFaceCameras:
         and sampling agree (the probe's core invariant)."""
         import jax.numpy as jnp
 
-        from zenith_tpu.ops.sampling import cube_direction_to_face_uv
+        from zenith.ops.sampling import cube_direction_to_face_uv
 
         eye = np.array([2.0, -1.0, 3.0])
         dirs = rng.normal(size=(256, 3))
@@ -64,7 +64,7 @@ class TestCapture:
         rasterizer. The result stays device-resident (no host copy)."""
         import jax.numpy as jnp
 
-        from zenith_tpu.ops.sampling import sample_cube
+        from zenith.ops.sampling import sample_cube
 
         core = RhiCore()
         device = core.create_render_device()
@@ -100,11 +100,11 @@ class TestCapture:
 class TestSceneUse:
     def test_probe_lights_the_scene(self):
         """A probe-lit render differs from flat ambient and stays finite."""
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, TextureDesc
-        from zenith_tpu.renderer.scene import DirectionalLight
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, TextureDesc
+        from zenith.renderer.scene import DirectionalLight
 
         core = RhiCore()
         device = core.create_render_device()

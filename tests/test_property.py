@@ -12,15 +12,15 @@ import pytest
 import jax.numpy as jnp
 
 from np_reference import render_reference
-from zenith_tpu.ops import (
+from zenith.ops import (
     TileGrid,
     bin_segmented,
     corner_attributes,
     raster_segmented,
     setup_triangles,
 )
-from zenith_tpu.ops.draw import assemble_triangles
-from zenith_tpu.rhi.state import (
+from zenith.ops.draw import assemble_triangles
+from zenith.rhi.state import (
     CompareOp,
     CullMode,
     FrontFace,

@@ -25,15 +25,15 @@ import pytest
 import jax.numpy as jnp
 
 from np_reference import render_reference
-from zenith_tpu.ops import (
+from zenith.ops import (
     TileGrid,
     bin_segmented,
     corner_attributes,
     raster_segmented,
     setup_triangles,
 )
-from zenith_tpu.ops.draw import assemble_triangles
-from zenith_tpu.rhi.state import (
+from zenith.ops.draw import assemble_triangles
+from zenith.rhi.state import (
     CompareOp,
     CullMode,
     FrontFace,
@@ -228,8 +228,8 @@ def _np_blend_op(name, a, b):
 def test_random_blend_equation(seed):
     """Random (factors × ops × write mask) through apply_color_output vs an
     independent numpy statement of the Vulkan blend equation (spec 28.1)."""
-    from zenith_tpu.ops.blend import apply_color_output
-    from zenith_tpu.rhi.state import BlendFactor, BlendOp, ColorAttachmentDesc
+    from zenith.ops.blend import apply_color_output
+    from zenith.rhi.state import BlendFactor, BlendOp, ColorAttachmentDesc
 
     rng = np.random.default_rng(7000 + seed)
     factors = list(BlendFactor)

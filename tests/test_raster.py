@@ -1,7 +1,7 @@
 """Rasterizer correctness vs the independent NumPy oracle.
 
-Pallas visibility kernel runs in interpreter mode on the CPU test platform;
-the same code path compiles on TPU.
+The segmented raster kernel runs in the Pallas interpreter on the CPU test
+platform; the same kernel compiles through Triton on the GPU.
 """
 
 import jax.numpy as jnp
@@ -9,18 +9,27 @@ import numpy as np
 import pytest
 
 from np_reference import render_reference
-from zenith_tpu.ops import (
+from zenith.ops import (
     TileGrid,
-    bin_triangles,
+    bin_segmented,
+    raster_segmented,
     setup_triangles,
-    visibility_pass,
 )
-from zenith_tpu.ops.geometry import clip_near_w
-from zenith_tpu.ops.shade import resolve_varyings
-from zenith_tpu.rhi.state import CompareOp, CullMode, FrontFace
+from zenith.ops.geometry import clip_near_w
+from zenith.ops.shade import resolve_varyings
+from zenith.rhi.state import CompareOp, CullMode, FrontFace
 
 W, H = 128, 32
 GRID = TileGrid(width=W, height=H, tile_h=8, tile_w=128)
+
+
+def slot_corner_data(records):
+    """Corner data whose one attribute is the record index: per corner
+    [slot·iw, iw], so acc[0] / acc[1] recovers the winning record."""
+    r = records.rast16.shape[0]
+    iw = records.shade16[:, 0:3]  # SHADE_IW0..2: per-corner 1/w
+    slot = jnp.arange(r, dtype=jnp.float32)[:, None]
+    return jnp.stack([slot * iw, iw], axis=-1).reshape(r, 6)
 
 
 def run_raster(
@@ -33,7 +42,7 @@ def run_raster(
     depth_write=True,
     depth_clear=0.0,
     grid=GRID,
-    capacity=64,
+    entry_budget=None,
 ):
     records = setup_triangles(
         jnp.asarray(clip, jnp.float32),
@@ -43,13 +52,18 @@ def run_raster(
         cull_mode=cull,
         front_face=front,
     )
-    bins = bin_triangles(records, grid, capacity)
+    bins = bin_segmented(
+        records, slot_corner_data(records), grid, entry_budget=entry_budget
+    )
     init_z = jnp.full((grid.height, grid.width), depth_clear, jnp.float32)
-    init_s = jnp.full((grid.height, grid.width), -1, jnp.int32)
-    z, slot = visibility_pass(
-        bins, grid, init_z, init_s,
+    z, acc = raster_segmented(
+        bins, grid, init_z,
         depth_test=depth_test, depth_write=depth_write, compare_op=compare,
     )
+    covered = acc[1] > 0.0
+    slot = jnp.where(
+        covered, jnp.round(acc[0] / jnp.where(covered, acc[1], 1.0)), -1
+    ).astype(jnp.int32)
     # Map record slot → original triangle id for oracle comparison.
     tri = jnp.where(slot >= 0, jnp.take(records.tri_id, jnp.maximum(slot, 0)), -1)
     return np.asarray(z), np.asarray(tri), np.asarray(slot), records
@@ -181,7 +195,7 @@ class TestRandomScenes:
             [pos, zz, np.ones((nv, 1))], axis=1
         ).astype(np.float32)
         idx = rng.integers(0, nv, size=(40, 3)).astype(np.int32)
-        z, tri, _, _ = run_raster(clip, idx, capacity=64)
+        z, tri, _, _ = run_raster(clip, idx)
         ref = render_reference(clip, idx, W, H, cull="none")
         np.testing.assert_array_equal(tri, ref["tri"])
         np.testing.assert_allclose(z, ref["z"], atol=1e-4)
@@ -193,8 +207,8 @@ class TestRandomScenes:
             [pos, np.full((nv, 1), 0.5), np.ones((nv, 1))], axis=1
         ).astype(np.float32)
         idx = rng.integers(0, nv, size=(16, 3)).astype(np.int32)
-        z1, tri1, _, _ = run_raster(clip, idx, capacity=32)
-        z2, tri2, _, _ = run_raster(clip, idx, capacity=256)
+        z1, tri1, _, _ = run_raster(clip, idx, entry_budget=64)
+        z2, tri2, _, _ = run_raster(clip, idx, entry_budget=4096)
         np.testing.assert_array_equal(tri1, tri2)
         np.testing.assert_array_equal(z1, z2)
 
@@ -210,7 +224,9 @@ class TestRandomScenes:
             jnp.asarray(clip), jnp.asarray(idx, jnp.int32), W, H,
             cull_mode=CullMode.NONE,
         )
-        bins = bin_triangles(records, GRID, 8)
+        bins = bin_segmented(
+            records, slot_corner_data(records), GRID, entry_budget=8
+        )
         assert int(bins.overflow) > 0
 
 
@@ -250,16 +266,11 @@ class TestClipping:
 
 
 class TestForwardInterp:
-    """The production path: raster_interp_pass + finalize_attrs (gather-free)."""
+    """The production path: raster_segmented + finalize_attrs (gather-free)."""
 
     def _run(self, clip, idx, vary, compare=CompareOp.GREATER):
         import jax.numpy as jnp
-        from zenith_tpu.ops import (
-            bin_triangles as _bin,
-            corner_attributes,
-            raster_interp_pass,
-            finalize_attrs,
-        )
+        from zenith.ops import corner_attributes, finalize_attrs
 
         records = setup_triangles(
             jnp.asarray(clip, jnp.float32), jnp.asarray(idx, jnp.int32),
@@ -269,11 +280,9 @@ class TestForwardInterp:
             [jnp.asarray(v, jnp.float32) for v in vary.values()], axis=1
         )
         corner = corner_attributes(records, jnp.asarray(idx, jnp.int32), flat)
-        bins = _bin(records, GRID, 64)
-        binned_attr = bins.gather_corner_data(corner)
-        z, acc = raster_interp_pass(
-            bins, binned_attr, GRID,
-            jnp.zeros((H, W), jnp.float32), compare_op=compare,
+        bins = bin_segmented(records, corner, GRID)
+        z, acc = raster_segmented(
+            bins, GRID, jnp.zeros((H, W), jnp.float32), compare_op=compare,
         )
         layout = [(k, v.shape[1]) for k, v in vary.items()] + [("__front", 1)]
         out, mask, builtins = finalize_attrs(z, acc, layout)
@@ -309,7 +318,7 @@ class TestSegmented:
 
     def _run(self, clip, idx, vary, compare=CompareOp.GREATER):
         import jax.numpy as jnp
-        from zenith_tpu.ops import (
+        from zenith.ops import (
             bin_segmented,
             corner_attributes,
             raster_segmented,
@@ -352,69 +361,102 @@ class TestSegmented:
         np.testing.assert_allclose(z, ref["z"], atol=1e-4)
         np.testing.assert_allclose(out["c"][mask], ref["c"][mask], atol=2e-3)
 
-    def test_entry_chunk_selection(self):
-        """Multi-M-entry budgets grow the CHUNK so the kernels' SMEM pair
-        (4 s32 routing tables + double-buffered entry window) fits the 1 MB
-        budget — 11.5M-entry terrain draws measured fatal at chunk 128 on
-        v5e. Small budgets keep the baseline (growth only inflates the
-        window term there)."""
-        from zenith_tpu.ops import binning as B
-
-        # Small draws: baseline chunk, even under a tiny budget (growth
-        # would only increase the dominant window term).
-        assert B.entry_chunk_for(2048, 4, 25) == B.ENTRY_CHUNK
-        # The terrain flyover at grid 1200, 4x budget (the measured OOM):
-        # tables at 128 = 4 x 355 KB --> must grow to 512.
-        assert B.entry_chunk_for(11_510_408, 1014, 25) == 512
-        # At the lean 2x budget the baseline still fits (tables 736 KB).
-        assert B.entry_chunk_for(5_755_204, 1014, 25) == B.ENTRY_CHUNK
-        # Enormous budgets that cannot fit return the least-overshoot chunk
-        # instead of looping forever (tables irreducible).
-        assert B.entry_chunk_for(10**9, 1014, 25) == B.MAX_ENTRY_CHUNK
-
-    def test_raster_matches_at_grown_chunk(self, rng, monkeypatch):
-        """Raster output is bit-identical when the bins use a larger
-        chunk (forced via the baseline constant — the kernels derive the
-        chunk from the bins' shapes)."""
-        import jax.numpy as jnp
-
-        from zenith_tpu.ops import (
-            bin_segmented,
-            corner_attributes,
-            raster_segmented,
-        )
-        from zenith_tpu.ops import binning as B
-
+    def _records(self, rng, n_tris=12):
         nv = 24
         pos = rng.uniform(-1.1, 1.1, size=(nv, 2))
         zz = rng.uniform(0.1, 0.9, size=(nv, 1))
         ww = rng.uniform(0.8, 3.0, size=(nv, 1))
         clip = np.concatenate([pos * ww, zz * ww, ww], axis=1).astype(np.float32)
-        idx = rng.integers(0, nv, size=(12, 3)).astype(np.int32)
+        idx = rng.integers(0, nv, size=(n_tris, 3)).astype(np.int32)
         vary = rng.uniform(0, 1, size=(nv, 3)).astype(np.float32)
         records = setup_triangles(
             jnp.asarray(clip, jnp.float32), jnp.asarray(idx, jnp.int32),
             W, H, cull_mode=CullMode.NONE,
         )
+        from zenith.ops import corner_attributes
+
         corner = corner_attributes(
             records, jnp.asarray(idx, jnp.int32), jnp.asarray(vary)
         )
+        return records, corner
 
-        base_bins = bin_segmented(records, corner, GRID, entry_budget=2048)
-        assert base_bins.rast_pad.shape[0] // base_bins.blk_count.shape[0] \
-            == B.ENTRY_CHUNK
+    def test_segments_cover_every_entry_exactly(self, rng):
+        """The per-tile segment table partitions the live rows: segments are
+        contiguous, in tile order, and each tile's rows are exactly the
+        records whose AABB overlaps it, in submission order."""
+        from zenith.ops import bin_segmented
 
-        monkeypatch.setattr(B, "ENTRY_CHUNK", 512)
-        big_bins = bin_segmented(records, corner, GRID, entry_budget=2048)
-        assert big_bins.rast_pad.shape[0] // big_bins.blk_count.shape[0] == 512
+        records, corner = self._records(rng)
+        bins = bin_segmented(records, corner, GRID)
+        start = np.asarray(bins.tile_start)
+        count = np.asarray(bins.tile_count)
+        assert int(bins.overflow) == 0
+        np.testing.assert_array_equal(start[1:], start[:-1] + count[:-1])
+        assert start[0] == 0
+        rows = np.asarray(bins.rows)
+        rast = np.asarray(records.rast16)
+        aabb = np.asarray(records.aabb)
+        valid = np.asarray(records.valid)
+        for t in range(GRID.num_tiles):
+            ty, tx = divmod(t, GRID.tiles_x)
+            x0, y0 = tx * GRID.tile_w, ty * GRID.tile_h
+            hits = [
+                r for r in range(rast.shape[0])
+                if valid[r]
+                and min(max(int(np.floor(aabb[r, 0] / GRID.tile_w)), 0), GRID.tiles_x - 1) <= tx
+                and min(max(int(np.floor(aabb[r, 2] / GRID.tile_w)), 0), GRID.tiles_x - 1) >= tx
+                and min(max(int(np.floor(aabb[r, 1] / GRID.tile_h)), 0), GRID.tiles_y - 1) <= ty
+                and min(max(int(np.floor(aabb[r, 3] / GRID.tile_h)), 0), GRID.tiles_y - 1) >= ty
+            ]
+            assert count[t] == len(hits), (t, x0, y0)
+            seg = rows[start[t]:start[t] + count[t], :16]
+            np.testing.assert_array_equal(seg, rast[hits])
 
-        z0, acc0 = raster_segmented(
-            base_bins, GRID, jnp.zeros((H, W), jnp.float32)
+    def test_empty_tiles_keep_init_content(self):
+        """A tile with no entries runs zero loop steps and writes its init
+        depth (and zero attribute planes)."""
+        from zenith.ops import bin_segmented, corner_attributes
+
+        # One small triangle in the top-left tile only.
+        px, py = 2.0 / W, 2.0 / H
+        clip = ndc_tri([(-1 + 2 * px, -1 + 2 * py), (-1 + 6 * px, -1 + 2 * py),
+                        (-1 + 2 * px, -1 + 6 * py)], z=0.5)
+        idx = np.array([[0, 1, 2]], np.int32)
+        records = setup_triangles(
+            jnp.asarray(clip), jnp.asarray(idx), W, H, cull_mode=CullMode.NONE
         )
-        z1, acc1 = raster_segmented(
-            big_bins, GRID, jnp.zeros((H, W), jnp.float32)
+        corner = corner_attributes(records, jnp.asarray(idx),
+                                   jnp.zeros((3, 0), jnp.float32))
+        grid = TileGrid(width=W, height=H, tile_h=8, tile_w=32)
+        bins = bin_segmented(records, corner, grid)
+        count = np.asarray(bins.tile_count)
+        assert count[0] == 1 and count[1:].sum() == 0
+        init = jnp.asarray(
+            np.random.default_rng(3).uniform(0.6, 0.9, (H, W)).astype(np.float32)
         )
-        assert int(base_bins.overflow) == 0 and int(big_bins.overflow) == 0
+        z, acc = raster_segmented(bins, grid, init, compare_op=CompareOp.ALWAYS)
+        z, acc = np.asarray(z), np.asarray(acc)
+        np.testing.assert_array_equal(z[:, 32:], np.asarray(init)[:, 32:])
+        np.testing.assert_array_equal(acc[:, :, 32:], 0.0)
+        assert (acc[-1, :8, :32] > 0).any()
+
+    @pytest.mark.parametrize(
+        "budget,tile",
+        [(None, (8, 128)), (4096, (8, 128)), (None, (16, 16)),
+         (None, (8, 32)), (None, (32, 64))],
+    )
+    def test_raster_identical_across_budgets_and_tiles(self, rng, budget, tile):
+        """Raster output is bit-identical for any entry budget that holds
+        every entry and any tile shape: tiles only partition the work."""
+        from zenith.ops import bin_segmented
+
+        records, corner = self._records(rng)
+        base = bin_segmented(records, corner, GRID)
+        z0, acc0 = raster_segmented(base, GRID, jnp.zeros((H, W), jnp.float32))
+        grid = TileGrid(width=W, height=H, tile_h=tile[0], tile_w=tile[1])
+        bins = bin_segmented(records, corner, grid, entry_budget=budget)
+        z1, acc1 = raster_segmented(bins, grid, jnp.zeros((H, W), jnp.float32))
+        assert int(base.overflow) == 0 and int(bins.overflow) == 0
         np.testing.assert_array_equal(np.asarray(z0), np.asarray(z1))
         np.testing.assert_array_equal(np.asarray(acc0), np.asarray(acc1))
 
@@ -499,7 +541,7 @@ class TestFusedSetup:
 
     def test_equivalent_to_split_path(self, rng):
         import jax.numpy as jnp
-        from zenith_tpu.ops import corner_attributes, setup_with_attrs
+        from zenith.ops import corner_attributes, setup_with_attrs
 
         nv = 40
         pos = rng.uniform(-1.3, 1.3, size=(nv, 2))

@@ -1,5 +1,5 @@
 """Sequential raster parts (ops/draw.py _bin_parts/_raster_parts): a draw
-whose sort payload would exceed the HBM working-set cap splits into
+whose sort payload would exceed the device working-set cap splits into
 sequential contiguous record ranges with (z, stencil, color) threaded
 through — the result must be BIT-EQUAL to the unsplit render (submission
 order is preserved because parts are contiguous ranges; the reference's
@@ -20,9 +20,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.ops import draw as draw_mod
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.rhi import (
+from zenith.ops import draw as draw_mod
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.rhi import (
     Buffer,
     ColorAttachmentDesc,
     CompareOp,
@@ -36,7 +36,7 @@ from zenith_tpu.rhi import (
     TextureDesc,
     VertexLayout,
 )
-from zenith_tpu.rhi.state import (
+from zenith.rhi.state import (
     DepthStencilDesc,
     GraphicPipelineState,
     LoadOp,

@@ -11,12 +11,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.asset.render_types import Mesh as MeshAsset
-from zenith_tpu.asset import AssetUrl
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.renderer import (
+from zenith.asset.render_types import Mesh as MeshAsset
+from zenith.asset import AssetUrl
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.renderer import (
     DeferredRenderer,
     DirectionalLight,
     ForwardShadowRenderer,
@@ -25,7 +25,7 @@ from zenith_tpu.renderer import (
     Scene,
     SceneObject,
 )
-from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
 W, H = 128, 64
 OPTS = CompileOptions(tile_h=8, tile_w=128)
@@ -238,8 +238,8 @@ class TestDeferred:
     def test_skybox_background_cube_sampled(self, device):
         """Background pixels sample the scene's cube map by view ray
         (texture.rs:94-105 proven through the full deferred graph)."""
-        from zenith_tpu.ops.sampling import sample_cube
-        from zenith_tpu.rhi import Texture
+        from zenith.ops.sampling import sample_cube
+        from zenith.rhi import Texture
 
         # Distinct constant color per face.
         faces = np.zeros((6, 8, 8, 4), np.float32)
@@ -324,7 +324,7 @@ class TestPost:
         hdr[H // 2, W // 2, :3] = 50.0
         hdr[:, :, :3] += 0.2
 
-        from zenith_tpu.rhi import Texture
+        from zenith.rhi import Texture
 
         tex = Texture(
             TextureDesc.color("hdr", W, H), jnp.asarray(hdr)
@@ -349,7 +349,7 @@ class TestTexturedDeferred:
         """Textured G-buffer: a UV-checkered ground modulates albedo; texture
         resources (mip tuples) flow through graph import → bind → sample."""
         import jax.numpy as jnp
-        from zenith_tpu.rhi import Format, Texture
+        from zenith.rhi import Format, Texture
 
         # 32×32-cell checker (cells small enough to alternate within the
         # visible ground span), no mips.
@@ -401,7 +401,7 @@ class TestVisibilityToggle:
         from the frame WITHOUT a new frame program: visibility rides the
         model-matrix dynamic (zero matrix -> clipped at w=0), so the
         structure key is unchanged."""
-        from zenith_tpu.rendergraph.graph import frame_program_cache_size
+        from zenith.rendergraph.graph import frame_program_cache_size
 
         scene = build_test_scene(device)
         renderer = DeferredRenderer(scene)
@@ -439,8 +439,8 @@ class TestVisibilityToggle:
         """Retained execution: frame_dynamics(include_models=True) carries
         visibility/motion through the stacked model-matrix dynamic -- the
         SAME compiled program re-executes with the object hidden."""
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache
 
         scene = build_test_scene(device)
         renderer = DeferredRenderer(scene)

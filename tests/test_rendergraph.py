@@ -7,13 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from zenith_tpu.rendergraph import (
+from zenith.rendergraph import (
     CompileOptions,
     RenderGraphBuilder,
     clear_frame_program_cache,
     frame_program_cache_size,
 )
-from zenith_tpu.rhi import (
+from zenith.rhi import (
     Buffer,
     BufferDesc,
     ColorAttachmentDesc,
@@ -29,7 +29,7 @@ from zenith_tpu.rhi import (
     VertexLayout,
     uniform,
 )
-from zenith_tpu.rhi.state import DepthStencilDesc, GraphicPipelineState
+from zenith.rhi.state import DepthStencilDesc, GraphicPipelineState
 
 W, H = 128, 32
 OPTS = CompileOptions(tile_h=8, tile_w=128, bin_capacity=16)
@@ -117,7 +117,7 @@ class TestLambdaClear:
         oa = node.write(out)
 
         def record(ctx):
-            from zenith_tpu.ops import clear_color
+            from zenith.ops import clear_color
 
             ctx.set(oa, clear_color(H, W, (0.2, 0.3, 0.8, 1.0)))
 
@@ -172,8 +172,8 @@ class TestTriangleGraph:
 
     def test_equals_direct_draw(self, device, pcache):
         """Graph execution == calling ops.draw_indexed directly."""
-        from zenith_tpu.ops import TileGrid, clear_color, draw_indexed
-        from zenith_tpu.rhi import (
+        from zenith.ops import TileGrid, clear_color, draw_indexed
+        from zenith.rhi import (
             GraphicPipelineAttachments,
             GraphicPipelineDesc,
         )
@@ -534,7 +534,7 @@ class TestFrameProgramLRU:
     def test_cache_evicts_least_recently_used(self, device, pcache):
         """The frame-program cache is LRU-bounded: structure churn (e.g. a
         resolution sweep) cannot grow it past the limit."""
-        from zenith_tpu.rendergraph import set_frame_program_cache_limit
+        from zenith.rendergraph import set_frame_program_cache_limit
 
         clear_frame_program_cache()
         set_frame_program_cache_limit(3)
@@ -567,9 +567,9 @@ class TestPresentEncode:
         """PresentEncode folds the sRGB swapchain encode into the frame
         program; its output must equal encode_present of the linear image,
         and Swapchain.present must pass pre-encoded uint8 frames through."""
-        from zenith_tpu.renderer import PresentEncode
-        from zenith_tpu.rhi import Format
-        from zenith_tpu.rhi.formats import encode_present
+        from zenith.renderer import PresentEncode
+        from zenith.rhi import Format
+        from zenith.rhi.formats import encode_present
 
         clear_frame_program_cache()
         builder = RenderGraphBuilder()
@@ -598,7 +598,7 @@ class TestPresentEncode:
         np.testing.assert_array_equal(enc_v, ref)
 
         # Swapchain passthrough: pre-encoded frames skip the encode jit.
-        from zenith_tpu.rhi.swapchain import Swapchain, SwapchainConfig
+        from zenith.rhi.swapchain import Swapchain, SwapchainConfig
 
         got = []
         sc = Swapchain(
@@ -658,7 +658,7 @@ class TestCaptureMemoDepth:
         """The per-compile memo must not reuse a depth-truncated stub
         (stored when an object was reached past the recursion cap) for the
         same object captured directly at shallow depth."""
-        from zenith_tpu.rendergraph.graph import _capture_key
+        from zenith.rendergraph.graph import _capture_key
 
         x = np.array([1.0, 2.0], np.float32)
         deep = [[[[[x]]]]]  # x is reached at depth 5 -> 'cap-deep' stub
@@ -681,8 +681,8 @@ class TestCaptureSelfCheck:
 
         import numpy as np
 
-        import zenith_tpu.rendergraph.graph as G
-        from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+        import zenith.rendergraph.graph as G
+        from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
         monkeypatch.setenv("ZENITH_VALIDATE", "1")
         monkeypatch.setattr(G, "_SELFCHECK_TICK", 0)
@@ -719,7 +719,7 @@ class TestPushConstants:
 
     @staticmethod
     def _build(record_fn, fs_bindings):
-        from zenith_tpu.rhi import push_constant  # noqa: F401 (re-export)
+        from zenith.rhi import push_constant  # noqa: F401 (re-export)
 
         def vs(attrs, res):
             pos = attrs["position"]
@@ -761,7 +761,7 @@ class TestPushConstants:
         return builder.build(), out
 
     def test_routes_value_to_declared_slot(self, device, pcache):
-        from zenith_tpu.rhi import push_constant
+        from zenith.rhi import push_constant
 
         def record(ctx, vba, iba):
             ctx.push_constants(np.array([0.0, 1.0, 0.0, 1.0], np.float32))
@@ -776,8 +776,8 @@ class TestPushConstants:
         assert inner[0] == 0.0 and inner[2] == 0.0  # red/blue zeroed
 
     def test_no_declared_slot_raises(self, device, pcache):
-        from zenith_tpu.rhi import uniform as u
-        from zenith_tpu.rhi.shader import BindingError
+        from zenith.rhi import uniform as u
+        from zenith.rhi.shader import BindingError
 
         def record(ctx, vba, iba):
             ctx.push_constants(np.zeros(4, np.float32))
@@ -788,8 +788,8 @@ class TestPushConstants:
             graph.compile(device, pcache, OPTS).execute(device)
 
     def test_two_slots_rejected(self, device, pcache):
-        from zenith_tpu.rhi import push_constant
-        from zenith_tpu.rhi.shader import BindingError
+        from zenith.rhi import push_constant
+        from zenith.rhi.shader import BindingError
 
         def record(ctx, vba, iba):
             ctx.push_constants(np.zeros(4, np.float32))
@@ -802,8 +802,8 @@ class TestPushConstants:
             graph.compile(device, pcache, OPTS).execute(device)
 
     def test_vulkan_size_guarantee_enforced(self, device, pcache):
-        from zenith_tpu.rhi import push_constant
-        from zenith_tpu.rhi.shader import BindingError
+        from zenith.rhi import push_constant
+        from zenith.rhi.shader import BindingError
 
         def record(ctx, vba, iba):
             ctx.push_constants(np.zeros(33, np.float32))  # 132 bytes

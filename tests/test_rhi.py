@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from zenith_tpu import rhi
-from zenith_tpu.rhi import (
+from zenith import rhi
+from zenith.rhi import (
     BindingError,
     Buffer,
     BufferDesc,
@@ -135,7 +135,7 @@ class TestPipelineCache:
 
     def test_depth_test_requires_depth_format(self):
         vs = Shader.vertex("vs", _dummy_vs)
-        from zenith_tpu.rhi import DepthStencilDesc
+        from zenith.rhi import DepthStencilDesc
 
         desc = GraphicPipelineDesc(
             shader_input=GraphicShaderInput(vs),
@@ -150,7 +150,7 @@ class TestPipelineCache:
 
 class TestBindings:
     def test_reflection_merge_conflict(self):
-        from zenith_tpu.rhi import texture2d
+        from zenith.rhi import texture2d
 
         vs = Shader.vertex("vs", _dummy_vs, bindings=[uniform("Thing")])
         fs = Shader.fragment("fs", _dummy_fs, bindings=[texture2d("Thing")])
@@ -158,7 +158,7 @@ class TestBindings:
             GraphicShaderInput(vs, fs).merged_reflection()
 
     def test_bound_resources_checked(self):
-        from zenith_tpu.rhi import BoundResources
+        from zenith.rhi import BoundResources
 
         vs = Shader.vertex("vs", _dummy_vs, bindings=[uniform("Time")])
         res = BoundResources(vs.reflection, {"Time": 1.25})
@@ -184,8 +184,8 @@ class TestDebugNames:
 
         import numpy as np
 
-        from zenith_tpu.rendergraph import RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, TextureDesc
+        from zenith.rendergraph import RenderGraphBuilder
+        from zenith.rhi import PipelineCache, TextureDesc
 
         monkeypatch.setenv("ZENITH_VALIDATE", "1")
         core = RhiCore()
@@ -261,8 +261,7 @@ class TestSwapchain:
 
     def test_readback_interval_zero_never_copies(self):
         """readback_interval=0 = benchmark mode: the swapchain only fences —
-        no frame is ever delivered to the sink (PERF.md dispatch-poison
-        hygiene for engine-path timing)."""
+        no frame is ever delivered to the sink."""
         import jax.numpy as jnp
 
         core = RhiCore()

@@ -3,14 +3,14 @@ asset round-trip, and the deferred skinned pipeline end-to-end."""
 
 import numpy as np
 
-from zenith_tpu.asset import AssetUrl
-from zenith_tpu.asset.render_types import (
+from zenith.asset import AssetUrl
+from zenith.asset.render_types import (
     AnimationChannel,
     AnimationClip,
     Mesh,
     Skin,
 )
-from zenith_tpu.renderer.animation import AnimationPlayer
+from zenith.renderer.animation import AnimationPlayer
 
 
 def _two_bone_skin(seg=2.0):
@@ -98,7 +98,7 @@ class TestDeviceLBS:
     def test_skin_blend_matches_numpy_oracle(self, rng):
         import jax.numpy as jnp
 
-        from zenith_tpu.renderer.deferred import _skin_blend
+        from zenith.renderer.deferred import _skin_blend
 
         n, j = 64, 6
         pos = rng.uniform(-3, 3, size=(n, 3)).astype(np.float32)
@@ -132,7 +132,7 @@ class TestDeviceLBS:
 
 class TestAssetRoundTrip:
     def test_mesh_skin_save_load(self, tmp_path):
-        from zenith_tpu.sandbox.scene import skinned_tube
+        from zenith.sandbox.scene import skinned_tube
 
         mesh = skinned_tube(bones=3, rings=4, sides=6)
         assert mesh.is_skinned
@@ -160,13 +160,13 @@ class TestSkinnedPipeline:
     def _render(self, *, animate, skinned=True):
         import math
 
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import DeferredRenderer, Scene, SceneObject
-        from zenith_tpu.renderer.scene import DirectionalLight
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-        from zenith_tpu.sandbox.scene import skinned_tube
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import DeferredRenderer, Scene, SceneObject
+        from zenith.renderer.scene import DirectionalLight
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.sandbox.scene import skinned_tube
 
         core = RhiCore()
         device = core.create_render_device()
@@ -310,8 +310,8 @@ class TestGltfSkin:
         path.write_text(json.dumps(doc))
 
     def test_bake_skin_and_animation(self, tmp_path):
-        import zenith_tpu.asset as asset_mod
-        from zenith_tpu.asset import AssetManager, registry
+        import zenith.asset as asset_mod
+        from zenith.asset import AssetManager, registry
 
         asset_mod.initialize()
         content = tmp_path / "content" / "sk"
@@ -357,8 +357,8 @@ class TestArmatureTransforms:
         import base64
         import json
 
-        import zenith_tpu.asset as asset_mod
-        from zenith_tpu.asset import AssetManager, registry
+        import zenith.asset as asset_mod
+        from zenith.asset import AssetManager, registry
 
         asset_mod.initialize()
         pos = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)

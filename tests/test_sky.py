@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.ops.atmosphere import Atmosphere, sky_radiance
+from zenith.ops.atmosphere import Atmosphere, sky_radiance
 
 
 def dirs_from_elevations(elev_deg, azim_deg=0.0):
@@ -136,13 +136,13 @@ class TestDynamics:
 
 class TestScene:
     def test_scene_sky_one_program_and_colored_background(self):
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")
@@ -164,17 +164,17 @@ class TestScene:
     def test_skybox_wins_over_atmosphere(self):
         """Scene.atmosphere is the lowest-priority background: with an
         environment/skybox set, the renderer must not consume def.atmo."""
-        from zenith_tpu.renderer import DeferredRenderer
-        from zenith_tpu.renderer.scene import Scene
-        from zenith_tpu.ops.atmosphere import Atmosphere
+        from zenith.renderer import DeferredRenderer
+        from zenith.renderer.scene import Scene
+        from zenith.ops.atmosphere import Atmosphere
 
         scene = Scene(objects=[], atmosphere=Atmosphere(),
                       skybox=object())
         r = DeferredRenderer.__new__(DeferredRenderer)
         r.scene = scene
         # frame_dynamics must not emit def.atmo when a skybox is present.
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree
 
         r.shadows = False
         r.velocity = False

@@ -12,10 +12,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from zenith_tpu.parallel import default_mesh
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-from zenith_tpu.rhi import (
+from zenith.parallel import default_mesh
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.rendergraph.graph import clear_frame_program_cache
+from zenith.rhi import (
     ColorAttachmentDesc,
     CullMode,
     Format,
@@ -29,7 +29,7 @@ from zenith_tpu.rhi import (
     TextureDesc,
     VertexLayout,
 )
-from zenith_tpu.rhi.state import DepthStencilDesc, GraphicPipelineState
+from zenith.rhi.state import DepthStencilDesc, GraphicPipelineState
 
 W, H = 128, 64  # 8 devices x 8-row bands
 
@@ -132,7 +132,7 @@ class TestSortLastGraph:
     def test_worst_case_band_imbalance(self, cpu_devices, rng):
         """All geometry inside the TOP band: sort-first leaves 7 of 8
         devices idle; sort-last must still produce the identical image
-        (the perf win is measured in tools/bench_sort_modes.py)."""
+        (the perf trade belongs to the benchmark's four-GPU cells)."""
         vb = _tri_vb(rng, 60, y_range=(-1.0, -0.76))  # top 12% of the frame
         ib = rng.integers(0, 60, size=(40, 3)).astype(np.int32)
 
@@ -313,7 +313,7 @@ class TestSortLastGraph:
 
             from dataclasses import replace as dc_replace
 
-            from zenith_tpu.rhi.state import (
+            from zenith.rhi.state import (
                 BlendFactor,
                 CompareOp,
                 LoadOp,
@@ -421,8 +421,8 @@ class TestSortLastMsaa:
     def _render(self, options):
         from dataclasses import replace
 
-        from zenith_tpu.rhi import Buffer, MultisampleState, RhiCore
-        from zenith_tpu.rhi.state import LoadOp
+        from zenith.rhi import Buffer, MultisampleState, RhiCore
+        from zenith.rhi.state import LoadOp
 
         w2, h2 = 128, 64
         device = RhiCore().create_render_device()

@@ -12,7 +12,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.ops.ssao import (
+from zenith.ops.ssao import (
     hemisphere_kernel,
     ssao_blur,
     ssao_occlusion,
@@ -138,17 +138,17 @@ class TestBlur:
 class TestDeferredSSAO:
     @pytest.fixture
     def device(self):
-        from zenith_tpu.rhi import RhiCore
+        from zenith.rhi import RhiCore
 
         return RhiCore().create_render_device()
 
     def _render(self, device, ssao, mesh=None, w=128, h=64):
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import DeferredRenderer, SSAOOptions
-        from zenith_tpu.renderer.scene import Scene, SceneObject
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import PipelineCache, TextureDesc
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import DeferredRenderer, SSAOOptions
+        from zenith.renderer.scene import Scene, SceneObject
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import PipelineCache, TextureDesc
 
         scene = Scene(
             objects=[
@@ -195,7 +195,7 @@ class TestDeferredSSAO:
 
         if len(jax.devices("cpu")) < 8:
             pytest.skip("needs 8 virtual cpu devices")
-        from zenith_tpu.parallel import default_mesh
+        from zenith.parallel import default_mesh
 
         single = self._render(device, ssao=True)
         sharded = self._render(device, ssao=True,

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops.ssr import ssr_reflect
+from zenith.ops.ssr import ssr_reflect
 
 W, H = 64, 64
 
@@ -166,10 +166,10 @@ class TestSPMD:
         """The SSR node under CompileOptions(mesh): the march gathers run
         on the gathered full surfaces and the band slices back — output
         matches single-device exactly (the motion-blur/TAA pattern)."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.renderer.ssr import ScreenSpaceReflections
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.parallel.sharding import default_mesh
+        from zenith.renderer.ssr import ScreenSpaceReflections
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
@@ -267,13 +267,13 @@ class TestScene:
         """Full deferred scene with --ssr: one frame program across frames
         (camera values ride dynamics — zero recompiles while orbiting),
         finite output."""
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")

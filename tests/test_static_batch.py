@@ -8,7 +8,7 @@ import math
 import numpy as np
 import pytest
 
-from tests.test_renderers import (
+from test_renderers import (
     H,
     OPTS,
     W,
@@ -18,15 +18,15 @@ from tests.test_renderers import (
     make_cube,
     run_graph,
 )
-from zenith_tpu.renderer import (
+from zenith.renderer import (
     DeferredRenderer,
     DirectionalLight,
     ForwardShadowRenderer,
     Scene,
     SceneObject,
 )
-from zenith_tpu.renderer.static_batch import StaticGeometryCache
-from zenith_tpu.rhi import Format, TextureDesc
+from zenith.renderer.static_batch import StaticGeometryCache
+from zenith.rhi import Format, TextureDesc
 
 
 class _NoStatic:
@@ -101,7 +101,7 @@ class TestStaticGeometryCache:
         assert geo2 is not geo1
 
     def test_mixed_stride_falls_back(self, device):
-        from zenith_tpu.rhi.resource import Buffer, BufferDesc, BufferUsage
+        from zenith.rhi.resource import Buffer, BufferDesc, BufferUsage
 
         scene = build_test_scene(device)
         odd = SceneObject(

@@ -12,14 +12,14 @@ import numpy as np
 import pytest
 
 from np_reference import render_reference
-from zenith_tpu.ops import (
+from zenith.ops import (
     TileGrid,
     bin_segmented,
     corner_attributes,
     raster_segmented,
     setup_triangles,
 )
-from zenith_tpu.rhi.state import (
+from zenith.rhi.state import (
     CompareOp,
     CullMode,
     StencilOp,
@@ -204,9 +204,9 @@ class TestStencilGraph:
     def test_two_pass_masked_draw(self):
         import jax
 
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import (
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import (
             Buffer,
             ColorAttachmentDesc,
             GraphicShaderInput,
@@ -215,7 +215,7 @@ class TestStencilGraph:
             Shader,
             TextureDesc,
         )
-        from zenith_tpu.rhi.state import (
+        from zenith.rhi.state import (
             DepthStencilDesc,
             GraphicPipelineState,
             RasterizationState,
@@ -318,9 +318,9 @@ class TestStencilMSAA:
     so the 2x result must equal the 1x result exactly."""
 
     def _run(self, samples):
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rendergraph.graph import clear_frame_program_cache
-        from zenith_tpu.rhi import (
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rendergraph.graph import clear_frame_program_cache
+        from zenith.rhi import (
             Buffer,
             ColorAttachmentDesc,
             GraphicShaderInput,
@@ -329,7 +329,7 @@ class TestStencilMSAA:
             Shader,
             TextureDesc,
         )
-        from zenith_tpu.rhi.state import (
+        from zenith.rhi.state import (
             DepthStencilDesc,
             GraphicPipelineState,
             MultisampleState,
@@ -400,7 +400,7 @@ class TestStencilMSAA:
             binder.set_stencil(sa2)
         node.execute(lambda ctx: ctx.draw_indexed(v2a, ia2))
 
-        from zenith_tpu.rhi import PipelineCache as _PC
+        from zenith.rhi import PipelineCache as _PC
 
         compiled = builder.build().compile(
             device, _PC(), CompileOptions(tile_h=8, tile_w=128)

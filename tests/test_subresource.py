@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-from zenith_tpu.rhi import (
+from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+from zenith.rhi import (
     BufferDesc,
     ColorAttachmentDesc,
     Format,
@@ -21,7 +21,7 @@ from zenith_tpu.rhi import (
     TextureDesc,
     attr,
 )
-from zenith_tpu.rhi.state import GraphicPipelineState, RasterizationState, CullMode, VertexLayout
+from zenith.rhi.state import GraphicPipelineState, RasterizationState, CullMode, VertexLayout
 
 LAYOUT = VertexLayout.from_fields(("position", 3), ("color", 3))
 
@@ -163,7 +163,7 @@ class TestRenderToLayer:
         dst = node2.write(out)
 
         def record_sample(ctx):
-            from zenith_tpu.ops.sampling import sample_cube
+            from zenith.ops.sampling import sample_cube
 
             dirs = jnp.broadcast_to(
                 jnp.asarray([0.0, 1.0, 0.0]), (8, 8, 3)
@@ -186,7 +186,7 @@ class TestRenderToLayer:
     def test_layer_depth_attachment(self):
         """Shadow-cascade shape: depth-only render into one layer of a
         2D-array depth texture."""
-        from zenith_tpu.rhi.state import CompareOp, DepthStencilDesc
+        from zenith.rhi.state import CompareOp, DepthStencilDesc
 
         device = _device()
         builder = RenderGraphBuilder()
@@ -249,8 +249,8 @@ class TestBufferRange:
 
 class TestBloomMipChain:
     def test_bloom_via_mips_runs_and_matches_single_node_shape(self):
-        from zenith_tpu.renderer import PostProcess
-        from zenith_tpu.rendergraph import RenderGraphBuilder
+        from zenith.renderer import PostProcess
+        from zenith.rendergraph import RenderGraphBuilder
 
         device = _device()
         h, w = 64, 128
@@ -284,7 +284,7 @@ class TestBloomMipChain:
         """1080p-style mip walks hit odd heights (1080→540→270→135→67);
         the upsample accumulate must edge-pad, not crash on a broadcast
         mismatch (round-3 review finding)."""
-        from zenith_tpu.renderer import PostProcess
+        from zenith.renderer import PostProcess
 
         device = _device()
         h, w = 68, 136  # chain: 68→34→17→8 (17 odd)
@@ -305,9 +305,9 @@ class TestBloomMipChain:
         assert np.isfinite(img).all()
 
     def test_mip_chain_structure_caches(self):
-        from zenith_tpu.rendergraph.graph import frame_program_cache_size
+        from zenith.rendergraph.graph import frame_program_cache_size
 
-        from zenith_tpu.renderer import PostProcess
+        from zenith.renderer import PostProcess
 
         device = _device()
         post = PostProcess(bloom_mips=2)

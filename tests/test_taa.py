@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.renderer.taa import (
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.renderer.taa import (
     TemporalAA,
     jitter_sequence,
     taa_resolve,
@@ -184,10 +184,10 @@ class TestEngineFeedback:
     def test_request_output_round_trip_rebuild_and_retained(self):
         """request_output → on_frame_outputs hands back the exported device
         value each frame, on the rebuild AND the retained path."""
-        from zenith_tpu.app import RenderableApp
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rhi import BufferDesc
-        from zenith_tpu.window import Window
+        from zenith.app import RenderableApp
+        from zenith.launch import launch
+        from zenith.rhi import BufferDesc
+        from zenith.window import Window
 
         got = []
 
@@ -247,13 +247,13 @@ class TestSceneTAA:
         (jitter + history + valid-flag flip cause zero recompiles), finite
         output, and the history feedback actually accumulates (consecutive
         frames differ less with TAA than without at the same orbit)."""
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")
@@ -276,10 +276,10 @@ class TestSPMD:
         matches single-device within fp tolerance."""
         import jax
 
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.renderer import TemporalAA
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.parallel.sharding import default_mesh
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.renderer import TemporalAA
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
@@ -357,9 +357,9 @@ class TestFeedbackRobustness:
         first.)"""
         import logging
 
-        from zenith_tpu.app import RenderableApp
-        from zenith_tpu.launch import launch
-        from zenith_tpu.window import Window
+        from zenith.app import RenderableApp
+        from zenith.launch import launch
+        from zenith.window import Window
 
         got = []
 
@@ -377,7 +377,7 @@ class TestFeedbackRobustness:
                     ctx.set(dst, jnp.zeros_like(ctx.get(dst)))
 
                 node.execute(record)
-                from zenith_tpu.rhi import BufferDesc
+                from zenith.rhi import BufferDesc
 
                 acc = builder.create(BufferDesc.storage("acc", (1,)))
                 w = node  # unused
@@ -390,7 +390,7 @@ class TestFeedbackRobustness:
                 records.append(record.getMessage())
 
         handler = Capture(level=logging.WARNING)
-        eng_logger = logging.getLogger("zenith_tpu.engine")
+        eng_logger = logging.getLogger("zenith.engine")
         eng_logger.addHandler(handler)
         try:
             window = Window(width=64, height=32, title="t")

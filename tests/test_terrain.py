@@ -3,7 +3,7 @@ and the end-to-end flyover frame."""
 
 import numpy as np
 
-from zenith_tpu.sandbox.terrain import (
+from zenith.sandbox.terrain import (
     fbm_heightmap,
     terrain_albedo,
     terrain_mesh,
@@ -47,12 +47,12 @@ class TestGeneration:
 
 class TestEndToEnd:
     def test_flyover_renders_finite(self):
-        from zenith_tpu.launch import launch
-        from zenith_tpu.window import Window
+        from zenith.launch import launch
+        from zenith.window import Window
 
         window = Window(width=128, height=64, title="t")
         loop = launch(
-            __import__("zenith_tpu.sandbox.terrain",
+            __import__("zenith.sandbox.terrain",
                        fromlist=["TerrainApp"]).TerrainApp,
             argv=["--", "--grid", "48"],
             window=window,

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops.sampling import (
+from zenith.ops.sampling import (
     cube_direction_to_face_uv,
     sample_2d_array,
     sample_3d,
     sample_cube,
 )
-from zenith_tpu.rhi.formats import Format
-from zenith_tpu.rhi.resource import Texture, TextureDesc
-from zenith_tpu.rhi.sampler import Filter, SamplerConfig
+from zenith.rhi.formats import Format
+from zenith.rhi.resource import Texture, TextureDesc
+from zenith.rhi.sampler import Filter, SamplerConfig
 
 
 class TestDescsAndUpload:

@@ -8,13 +8,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from zenith_tpu.core.camera import Camera
-from zenith_tpu.core.mathtypes import Degree, Radians
-from zenith_tpu.renderer import DeferredRenderer
-from zenith_tpu.renderer.scene import DirectionalLight, Scene, SceneObject
-from zenith_tpu.rendergraph import RenderGraphBuilder
-from zenith_tpu.rendergraph.graph import CompileOptions
-from zenith_tpu.rhi import PipelineCache, RhiCore, TextureDesc
+from zenith.core.camera import Camera
+from zenith.core.mathtypes import Degree, Radians
+from zenith.renderer import DeferredRenderer
+from zenith.renderer.scene import DirectionalLight, Scene, SceneObject
+from zenith.rendergraph import RenderGraphBuilder
+from zenith.rendergraph.graph import CompileOptions
+from zenith.rhi import PipelineCache, RhiCore, TextureDesc
 
 W, H = 128, 96
 
@@ -131,7 +131,7 @@ class TestSkinnedVelocity:
     def test_skinned_prev_tracks_palette(self):
         """Animate the joint palette between frames: the prev plane holds
         the PREVIOUS palette's skinned positions."""
-        from zenith_tpu.sandbox.scene import skinned_tube
+        from zenith.sandbox.scene import skinned_tube
 
         device = RhiCore().create_render_device()
         tube = skinned_tube(bones=3, rings=8, sides=8)
@@ -158,7 +158,7 @@ class TestSkinnedVelocity:
 
 class TestMorphVelocity:
     def test_morph_prev_tracks_weights(self):
-        from zenith_tpu.sandbox.scene import morphing_blob
+        from zenith.sandbox.scene import morphing_blob
 
         device = RhiCore().create_render_device()
         blob = morphing_blob(rings=8, sides=10)
@@ -211,7 +211,7 @@ class TestInstancedVelocity:
 
 class TestDilateVelocity:
     def test_dominant_velocity_spreads_to_neighbors(self):
-        from zenith_tpu.renderer.motion_blur import dilate_velocity
+        from zenith.renderer.motion_blur import dilate_velocity
 
         vx = jnp.zeros((9, 9), jnp.float32).at[4, 4].set(10.0)
         vy = jnp.zeros((9, 9), jnp.float32)
@@ -223,7 +223,7 @@ class TestDilateVelocity:
         assert dx[0, 0] == 0.0 and dx[4, 7] == 0.0
 
     def test_zero_field_unchanged(self):
-        from zenith_tpu.renderer.motion_blur import dilate_velocity
+        from zenith.renderer.motion_blur import dilate_velocity
 
         vx = jnp.full((6, 6), 2.0)
         vy = jnp.full((6, 6), -1.0)
@@ -238,7 +238,7 @@ class TestTemporalConsumers:
         color so the resolve reveals WHERE history was sampled from."""
         import jax
 
-        from zenith_tpu.renderer import TemporalAA
+        from zenith.renderer import TemporalAA
 
         device = RhiCore().create_render_device()
         cube = SceneObject.cube(device, "c", size=6.0)
@@ -280,7 +280,7 @@ class TestTemporalConsumers:
         """Static camera + translating object: with per-draw velocity the
         object's screen region blurs along x; without it the resolve is
         a no-op (camera never moved)."""
-        from zenith_tpu.renderer import MotionBlur
+        from zenith.renderer import MotionBlur
 
         def run(velocity: bool):
             device = RhiCore().create_render_device()
@@ -329,7 +329,7 @@ class TestSPMD:
     def test_velocity_gbuffer_sharded_matches_single(self, cpu_devices):
         """The velocity G-buffer under a row-band mesh: prev plane matches
         the single-device render exactly."""
-        from zenith_tpu.parallel.sharding import default_mesh
+        from zenith.parallel.sharding import default_mesh
 
         h8 = 128  # must divide mesh size (8) x tile_h (8)
 
@@ -390,7 +390,7 @@ class TestAutoVelocity:
         assert r.velocity is False and r.scene_animated is False
 
     def test_skinned_scene_auto_on(self):
-        from zenith_tpu.sandbox.scene import skinned_tube
+        from zenith.sandbox.scene import skinned_tube
 
         device = RhiCore().create_render_device()
         tube = skinned_tube(bones=3, rings=8, sides=8)
@@ -404,7 +404,7 @@ class TestAutoVelocity:
         """The done-criterion: an animated scene rendered with NO explicit
         velocity flag publishes the prev_pos plane (TAA/motion blur pick
         it up automatically)."""
-        from zenith_tpu.sandbox.scene import skinned_tube
+        from zenith.sandbox.scene import skinned_tube
 
         device = RhiCore().create_render_device()
         tube = skinned_tube(bones=3, rings=8, sides=8)
@@ -422,7 +422,7 @@ class TestAutoVelocity:
         np.testing.assert_allclose(pos[..., :3], prev[..., :3], atol=1e-5)
 
     def test_explicit_off_sets_advisory_flag(self):
-        from zenith_tpu.sandbox.scene import skinned_tube
+        from zenith.sandbox.scene import skinned_tube
 
         device = RhiCore().create_render_device()
         tube = skinned_tube(bones=3, rings=8, sides=8)

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.rhi import (
+from zenith.rhi import (
     Format,
     GraphicPipelineAttachments,
     GraphicShaderInput,
@@ -20,9 +20,9 @@ from zenith_tpu.rhi import (
     attr,
     uniform,
 )
-from zenith_tpu.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
-from zenith_tpu.rhi.shader import BindingError
-from zenith_tpu.rhi.state import GraphicPipelineState, VertexLayout
+from zenith.rhi.pipeline import GraphicPipeline, GraphicPipelineDesc
+from zenith.rhi.shader import BindingError
+from zenith.rhi.state import GraphicPipelineState, VertexLayout
 
 LAYOUT = VertexLayout.from_fields(("position", 3), ("color", 3))
 
@@ -99,8 +99,8 @@ class TestPipelineTimeValidation:
 
 class TestDrawTimeChecks:
     def _draw(self, vs, resources=None, instance_count=1, instance_data=None):
-        from zenith_tpu.ops.binning import TileGrid
-        from zenith_tpu.ops.draw import draw_indexed
+        from zenith.ops.binning import TileGrid
+        from zenith.ops.draw import draw_indexed
 
         pipe = GraphicPipeline(_desc(vs))
         grid = TileGrid(width=128, height=32, tile_h=32, tile_w=128)
@@ -136,7 +136,7 @@ class TestDrawTimeChecks:
 
     def test_unused_binding_warns_under_validate(self, caplog, monkeypatch):
         monkeypatch.setenv("ZENITH_VALIDATE", "1")
-        import zenith_tpu.ops.draw as draw_mod
+        import zenith.ops.draw as draw_mod
 
         monkeypatch.setattr(draw_mod, "_UNUSED_WARNED", set())
         vs = Shader.vertex(
@@ -150,7 +150,7 @@ class TestDrawTimeChecks:
 
     def test_no_unused_warning_when_validation_off(self, caplog, monkeypatch):
         monkeypatch.setenv("ZENITH_VALIDATE", "0")
-        import zenith_tpu.ops.draw as draw_mod
+        import zenith.ops.draw as draw_mod
 
         monkeypatch.setattr(draw_mod, "_UNUSED_WARNED", set())
         vs = Shader.vertex(

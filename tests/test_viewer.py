@@ -1,4 +1,4 @@
-"""Interactive HTTP viewer (zenith_tpu/viewer.py) — the winit front-end
+"""Interactive HTTP viewer (zenith/viewer.py) — the winit front-end
 analog (reference main_loop.rs:21-62). Verifies the full wire contract
 without a browser: input POSTed as JSON lands in the Window event queue as
 the typed events of core.events, and presented frames come back over
@@ -12,7 +12,7 @@ import urllib.request
 import numpy as np
 import pytest
 
-from zenith_tpu.core.events import (
+from zenith.core.events import (
     CloseRequested,
     ElementState,
     KeyboardInput,
@@ -22,8 +22,8 @@ from zenith_tpu.core.events import (
     MouseMotion,
     Resized,
 )
-from zenith_tpu.viewer import ViewerServer, decode_event, keycode_from_js
-from zenith_tpu.window import Window
+from zenith.viewer import ViewerServer, decode_event, keycode_from_js
+from zenith.window import Window
 
 
 @pytest.fixture()
@@ -185,7 +185,7 @@ class TestAdaptiveStream:
     time.perf_counter so the hysteresis windows are deterministic."""
 
     def _make(self, monkeypatch, target=30.0, view=(1280, 720)):
-        from zenith_tpu import viewer as viewer_mod
+        from zenith import viewer as viewer_mod
 
         clock = [1000.0]
         monkeypatch.setattr(viewer_mod.time, "perf_counter", lambda: clock[0])
@@ -262,7 +262,7 @@ class TestAdaptiveStream:
         assert adaptive.rung == 0
 
     def test_bottom_rung_degrades_quality_then_recovers(self, monkeypatch):
-        from zenith_tpu import viewer as viewer_mod
+        from zenith import viewer as viewer_mod
 
         clock = [1000.0]
         monkeypatch.setattr(viewer_mod.time, "perf_counter", lambda: clock[0])
@@ -281,7 +281,7 @@ class TestAdaptiveStream:
 
     def test_stats_reports_adaptive_state(self, served):
         window, viewer = served
-        from zenith_tpu.viewer import AdaptiveStream
+        from zenith.viewer import AdaptiveStream
 
         viewer.adaptive = AdaptiveStream(window, target_fps=30.0,
                                          viewer=viewer)

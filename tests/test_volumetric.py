@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zenith_tpu.ops.volumetric import volumetric_sun
+from zenith.ops.volumetric import volumetric_sun
 
 W, H = 32, 16
 
@@ -140,17 +140,17 @@ class TestSPMD:
         """The fog node under CompileOptions(mesh): only the shadow map
         gathers full; screen math stays on the band; the jitter hash uses
         global rows — output matches single-device exactly."""
-        from zenith_tpu.parallel.sharding import default_mesh
-        from zenith_tpu.renderer.volumetric import VolumetricFog
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.parallel.sharding import default_mesh
+        from zenith.renderer.volumetric import VolumetricFog
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
 
         core = RhiCore()
         device = core.create_render_device()
         h2, w2 = 128, 64
         # A real perspective-ish camera: inv VP mapping NDC to world rays.
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
 
         real = Camera(fov_y=Degree(40.0), aspect_ratio=w2 / h2)
         real.set_position(np.array([0.0, -60.0, 20.0], np.float32))
@@ -238,13 +238,13 @@ class TestSPMD:
 
 class TestScene:
     def test_scene_fog_one_program_and_finite(self):
-        from zenith_tpu.launch import launch
-        from zenith_tpu.rendergraph.graph import (
+        from zenith.launch import launch
+        from zenith.rendergraph.graph import (
             clear_frame_program_cache,
             frame_program_cache_size,
         )
-        from zenith_tpu.sandbox.scene import SceneApp
-        from zenith_tpu.window import Window
+        from zenith.sandbox.scene import SceneApp
+        from zenith.window import Window
 
         clear_frame_program_cache()
         window = Window(width=128, height=64, title="t")

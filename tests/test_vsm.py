@@ -5,7 +5,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from zenith_tpu.ops.vsm import depth_to_moments, sample_vsm
+from zenith.ops.vsm import depth_to_moments, sample_vsm
 
 
 class TestMoments:
@@ -54,13 +54,13 @@ class TestSceneVSM:
     def _render(self, soft):
         from dataclasses import replace
 
-        from zenith_tpu.core.camera import Camera
-        from zenith_tpu.core.mathtypes import Degree, Radians
-        from zenith_tpu.renderer import DeferredRenderer
-        from zenith_tpu.rendergraph import CompileOptions, RenderGraphBuilder
-        from zenith_tpu.rhi import Format, PipelineCache, RhiCore, TextureDesc
-        from zenith_tpu.sandbox.scene import build_scene
-        from zenith_tpu import asset
+        from zenith.core.camera import Camera
+        from zenith.core.mathtypes import Degree, Radians
+        from zenith.renderer import DeferredRenderer
+        from zenith.rendergraph import CompileOptions, RenderGraphBuilder
+        from zenith.rhi import Format, PipelineCache, RhiCore, TextureDesc
+        from zenith.sandbox.scene import build_scene
+        from zenith import asset
 
         asset.initialize()
         core = RhiCore()
